@@ -8,10 +8,15 @@ without them. It:
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the fused LSTM kernel from demo2program_tpu_torch/csrc with nvcc
-     for sm_90a and prints the build time and ptxas report;
+     for sm_90a, prints the build time and ptxas's registers, shared memory
+     and spills for every kernel instance, and checks that none spills;
   3. kernel phase: holds the kernel against its plain PyTorch version on the
      card at every shape of the eval path (D in {48, 512}, H = 512,
-     B in {32, 320}, f32 and bf16) and times both with CUDA events;
+     B in {32, 320}, f32 and bf16), prints each launch's grid and block
+     count, and times both versions three ways: back-to-back calls from
+     Python (host-paced, `ms`), 50 calls captured in a CUDA graph and
+     replayed (device time, `device_ms`), and the host's own time per call
+     (`host_us`);
   4. slice phase: makes a seeded in-memory Karel split (k=10, test_k=5,
      T=20, L=45), saves a random-init FullModel at 512 units as a .pt,
      evaluates 3 batches of 32 through the port's Evaler with
@@ -31,6 +36,7 @@ TF32 is off throughout: every comparison is against f32 references.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +80,8 @@ def check(cond, msg):
 
 
 def time_ms(fn, iters=100, warmup=10):
+    """ms per call of back-to-back calls from Python: paced by the host
+    whenever a call's launches take longer to enqueue than to run."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -85,6 +93,60 @@ def time_ms(fn, iters=100, warmup=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls=50, replays=20):
+    """Device ms per call: `calls` back-to-back calls captured in one CUDA
+    graph and replayed, timed with CUDA events. The wrappers launch on the
+    current stream, which is the capture stream inside the graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_us(fn, iters=200):
+    """Host µs per call: the time Python takes to enqueue one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def build_phase():
+    """Build the kernel library; print ptxas's report and check it."""
+    path, seconds, log = fused_lstm.build()
+    print(f"build: {os.path.relpath(path, ROOT)} in {seconds:.1f} s "
+          f"(nvcc sm_90a)", flush=True)
+    for line in log.splitlines():
+        if "ptxas" in line or "spill" in line:
+            print("build: " + line.strip(), flush=True)
+    # f32 and bf16 x wide and narrow variant x cp.async and edge loads
+    entries = log.count("Compiling entry function")
+    check(entries == 8, f"ptxas compiled {entries} kernel instances, "
+          f"expected 8")
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+    check(spills and all(int(n) == 0 for n in spills),
+          "a kernel or a function it calls spills registers")
 
 
 def kernel_phase():
@@ -103,6 +165,7 @@ def kernel_phase():
             x, h, c = rnd(B, D), rnd(B, H), rnd(B, H)
             w, b = rnd(D + H, 4 * H, scale=limit), rnd(4 * H, scale=0.1)
             h_k, c_k = fused_lstm.fused_lstm_step(x, h, c, w, b)
+            plan = fused_lstm.last_plan()
             h_r, c_r = fused_lstm.lstm_step_ref(x, h, c, w, b)
             torch.cuda.synchronize()
             err = max((h_k.float() - h_r.float()).abs().max().item(),
@@ -110,12 +173,21 @@ def kernel_phase():
             bound = max((atol + rtol * r.float().abs()
                          - (k.float() - r.float()).abs()).min().item()
                         for k, r in ((h_k, h_r), (c_k, c_r)))
-            ms = time_ms(lambda: fused_lstm.fused_lstm_step(x, h, c, w, b))
-            plain_ms = time_ms(lambda: fused_lstm.lstm_step_ref(
-                x, h, c, w, b))
+
+            def kernel():
+                fused_lstm.fused_lstm_step(x, h, c, w, b)
+
+            def plain():
+                fused_lstm.lstm_step_ref(x, h, c, w, b)
+
             row = {"B": B, "D": D, "H": H, "dtype": str(dtype)[6:],
                    "max_abs_err": err, "atol": atol, "rtol": rtol,
-                   "ms": ms, "plain_ms": plain_ms}
+                   "grid": [plan["grid_x"], plan["grid_y"], plan["grid_z"]],
+                   "cluster": plan["cluster"], "blocks": plan["blocks"],
+                   "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+                   "device_ms": device_ms(kernel),
+                   "plain_device_ms": device_ms(plain),
+                   "host_us": host_us(kernel), "plain_host_us": host_us(plain)}
             print("kernel fused_lstm_step " + json.dumps(row), flush=True)
             check(bound >= 0, f"kernel disagrees with plain version: {row}")
             rows.append(row)
@@ -263,18 +335,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
 
-    path, seconds, log = fused_lstm.build()
-    print(f"build: {os.path.relpath(path, ROOT)} in {seconds:.1f} s "
-          f"(nvcc sm_90a)", flush=True)
-    for line in log.splitlines():
-        if "ptxas" in line:
-            print("build: " + line.strip(), flush=True)
-
+    build_phase()
     rows = kernel_phase()
     launches = slice_phase()
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     main_shape = next(r for r in f32 if r["B"] == 320 and r["D"] == 512)
+    decoder = next(r for r in f32 if r["B"] == 32 and r["D"] == 512)
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_step", "route": "cuda",
         "source": "demo2program_tpu_torch/csrc/fused_lstm.cu",
@@ -282,6 +349,10 @@ def main():
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "device_ms": main_shape["device_ms"],
+        "plain_device_ms": main_shape["plain_device_ms"],
+        "b32_device_ms": decoder["device_ms"],
+        "b32_plain_device_ms": decoder["plain_device_ms"],
         "shapes": rows}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ Each library is compiled from the sources under `demo2program_tpu_torch/csrc/`
 at first use into `build/kernels/` at the root of the checkout, as a shared
 library with a plain C interface, which the wrapper loads with ctypes.
 The file name carries a hash of the sources and flags, so an edited source
-builds anew and an unchanged one is reused.
+builds anew and an unchanged one is reused. The compiler's output (with
+ptxas's register, shared-memory and spill report) is kept beside it.
 
 Nothing here runs at import: the CPU test host has no nvcc.
 """
@@ -40,14 +41,16 @@ def build(name, sources):
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so.
 
     Returns (path, seconds spent compiling, compiler output). A library
-    that already exists is reused: 0 seconds and an empty log."""
+    that already exists is reused: 0 seconds and the output it was built
+    with."""
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
@@ -58,5 +61,7 @@ def build(name, sources):
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {name}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    log_path.write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds, proc.stdout + proc.stderr
+    return out, seconds, log

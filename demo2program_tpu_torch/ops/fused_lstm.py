@@ -52,9 +52,25 @@ def _library():
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return lib
+
+
+_PLAN_KEYS = ("grid_x", "grid_y", "grid_z", "cluster", "threads",
+              "smem_bytes", "vec")
+_PLAN = (ctypes.c_int * len(_PLAN_KEYS))()   # written by every launch
+_PLAN_PTR = ctypes.addressof(_PLAN)
+
+
+def last_plan():
+    """The launch configuration the latest kernel launch took: grid,
+    blocks per cluster along K (2: the wide variant, 4: the narrow one),
+    threads, dynamic shared memory, and whether tiles moved by 16-byte
+    async copies (1) or plain loads (0). Adds "blocks"."""
+    plan = dict(zip(_PLAN_KEYS, _PLAN))
+    plan["blocks"] = plan["grid_x"] * plan["grid_y"] * plan["grid_z"]
+    return plan
 
 
 def _check(x, h, c, w, b):
@@ -103,7 +119,7 @@ def fused_lstm_step(x, h, c, w, b):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(),
                  b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(), B, D, H,
-                 stream)
+                 stream, _PLAN_PTR)
     if err != 0:
         raise RuntimeError(f"fused_lstm_step: kernel launch failed with CUDA "
                            f"error {err}")

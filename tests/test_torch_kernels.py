@@ -8,12 +8,29 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 (`--noconftest` skips tests/conftest.py, which sets up JAX.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from demo2program_tpu_torch.ops.fused_lstm import (
-    fused_lstm_step, lstm_step_ref)
+    fused_lstm_step, last_plan, lstm_step_ref)
+
+# max |kernel - plain| <= atol + atol * |plain|. f32: 3xTF32 products summed
+# in another order than cuBLAS's f32 GEMM; bf16: one rounding of the stored
+# result (2^-8 relative).
+ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
+BATCHES = (1, 20, 32, 33, 64, 200, 320)
+# (D, H): the encoder's first pass, the 512-wide layers, and shapes whose
+# rows are not 16-byte aligned (13, 100) or narrower than one block (64)
+WIDTHS = ((48, 512), (512, 512), (13, 100), (48, 64))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
 
 
 @pytest.fixture(autouse=True)
@@ -37,37 +54,110 @@ def _inputs(B, D, H, seed):
             (r.randn(4 * H) * 0.1).astype(np.float32))
 
 
+def _on_card(arrays, dtype):
+    return [torch.from_numpy(a).to("cuda", getattr(torch, dtype))
+            for a in arrays]
+
+
+def _assert_close(kernel, plain, dtype):
+    for k, r in zip(kernel, plain):
+        assert k.dtype == getattr(torch, dtype)
+        torch.testing.assert_close(k.float(), r.float(), atol=ATOL[dtype],
+                                   rtol=ATOL[dtype])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4),
-                                        ("bfloat16", 1e-2)])
-@pytest.mark.parametrize("B,D", [(20, 48), (32, 512), (320, 48),
-                                 (200, 512)])
-def test_kernel_matches_plain(B, D, dtype, atol):
-    """CUDA kernel vs the plain version on the card, ragged edges included
-    (B = 20/200, D = 48). f32: sums in other orders; bf16: one rounding of
-    the stored result (2^-8 relative)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
-    dt = getattr(torch, dtype)
-    args = [torch.from_numpy(a).to("cuda", dt)
-            for a in _inputs(B, D, 512, seed=B + D)]
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,H", WIDTHS)
+@pytest.mark.parametrize("B", BATCHES)
+def test_kernel_matches_plain(cuda, B, D, H, dtype):
+    """Both variants (wide and split-K), both instances (16-byte copies and
+    the edge path), and every ragged B, D and H edge."""
+    args = _on_card(_inputs(B, D, H, seed=B + D + H), dtype)
     before = fused_lstm_step.launches
-    h_k, c_k = fused_lstm_step(*args)
-    h_r, c_r = lstm_step_ref(*args)
+    out = fused_lstm_step(*args)
+    ref = lstm_step_ref(*args)
     torch.cuda.synchronize()
     assert fused_lstm_step.launches == before + 1
-    for k, r in ((h_k, h_r), (c_k, c_r)):
-        assert k.dtype == dt
-        torch.testing.assert_close(k.float(), r.float(), atol=atol,
-                                   rtol=atol)
+    _assert_close(out, ref, dtype)
 
 
 @pytest.mark.cuda
-def test_wrapper_rejects_what_the_kernel_does_not_take():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
-    x, h, c, w, b = [torch.from_numpy(a).cuda()
-                     for a in _inputs(32, 48, 64, seed=0)]
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_takes_unaligned_tensors(cuda, dtype):
+    """x, h and W that start two elements past a 16-byte boundary take the
+    edge instance (plain loads) and give the same result."""
+    B, D, H = 32, 48, 64
+    args = _on_card(_inputs(B, D, H, seed=5), dtype)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+        view = buf[2:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x, h, c, w, b = args
+    out = fused_lstm_step(shifted(x), shifted(h), c, shifted(w), b)
+    assert last_plan()["vec"] == 0
+    _assert_close(out, lstm_step_ref(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D", [(32, 512), (320, 48), (320, 512)])
+def test_scan_matches_plain(cuda, B, D, dtype):
+    """20 steps, each fed the kernel's own (h, c), against the plain version
+    fed its own. Weights are glorot-uniform as in the model, so the cell
+    contracts and errors do not compound: the drift bound after 20 steps is
+    the one-step tolerance."""
+    H = 512
+    r = np.random.RandomState(B + D)
+    limit = math.sqrt(6.0 / (D + H + 4 * H))
+    w = r.uniform(-limit, limit, (D + H, 4 * H)).astype(np.float32)
+    b = (r.randn(4 * H) * 0.1).astype(np.float32)
+    xs = [r.randn(B, D).astype(np.float32) for _ in range(20)]
+    h0 = (r.randn(B, H) * 0.5).astype(np.float32)
+    w, b, h0, *xs = _on_card([w, b, h0, *xs], dtype)
+    kernel = plain = (h0, h0.clone())
+    for x in xs:
+        kernel = fused_lstm_step(x, *kernel, w, b)
+        plain = lstm_step_ref(x, *plain, w, b)
+    _assert_close(kernel, plain, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D", [(32, 512), (320, 512), (20, 13)])
+def test_kernel_is_deterministic(cuda, B, D, dtype):
+    """Two launches on the same inputs are bitwise equal: the split-K
+    cluster adds its partial tiles in rank order, without atomics."""
+    args = _on_card(_inputs(B, D, 512, seed=3), dtype)
+    h1, c1 = fused_lstm_step(*args)
+    h2, c2 = fused_lstm_step(*args)
+    assert torch.equal(h1, h2) and torch.equal(c1, c2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_plan_fills_the_card(cuda, dtype):
+    """The program decoder's B = 32 runs the narrow variant, clusters of 4
+    blocks along K, 128 blocks; B = 320 runs the wide variant, clusters of
+    2, 320 blocks. At H = 100 the wide grid (7 x 5 x 2) has fewer blocks
+    than the card has SMs, so B = 320 runs narrow; its rows are not 16-byte
+    aligned, so it takes the edge instance. Each plan is the one the launch
+    took."""
+    for (B, D, H), cluster, blocks, vec in (((32, 512, 512), 4, 128, 1),
+                                            ((320, 512, 512), 2, 320, 1),
+                                            ((320, 13, 100), 4, 280, 0)):
+        fused_lstm_step(*_on_card(_inputs(B, D, H, seed=1), dtype))
+        plan = last_plan()
+        assert (plan["cluster"], plan["blocks"], plan["vec"]) == (
+            cluster, blocks, vec), (B, D, H, plan)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, h, c, w, b = _on_card(_inputs(32, 48, 64, seed=0), "float32")
     with pytest.raises(ValueError, match="contiguous"):
         fused_lstm_step(x.t().contiguous().t(), h, c, w, b)
     with pytest.raises(TypeError):
@@ -76,3 +166,41 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fused_lstm_step(x, h, c, w[1:], b)
     with pytest.raises(NotImplementedError):
         fused_lstm_step(x, h, c, w.requires_grad_(), b)
+
+
+def _tf32(a):
+    """Round f32 to the nearest TF32 (10 mantissa bits), as the kernel's
+    split does."""
+    return ((a.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+@pytest.mark.parametrize("B,D", [(32, 48), (320, 48), (32, 512), (320, 512)])
+def test_f32_tolerance_rejects_single_pass_tf32(B, D):
+    """The f32 tolerance tells the 3xTF32 split from one TF32 pass at every
+    eval shape, with glorot weights and N(0, 1) activations as in
+    chip_smoke.py: z = [x, h] @ W from TF32-rounded operands (products and
+    sums exact in f64) breaks it; the split's three products keep it."""
+    H = 512
+    r = np.random.RandomState(B + D)
+    limit = math.sqrt(6.0 / (D + H + 4 * H))
+    x, h, c = (torch.from_numpy(r.randn(B, n).astype(np.float32))
+               for n in (D, H, H))
+    w = torch.from_numpy(
+        r.uniform(-limit, limit, (D + H, 4 * H)).astype(np.float32))
+    b = torch.from_numpy((r.randn(4 * H) * 0.1).astype(np.float32))
+    plain = lstm_step_ref(x, h, c, w, b)
+    a = torch.cat([x, h], dim=-1)
+    a_big, w_big = _tf32(a), _tf32(w)
+    a_small, w_small = _tf32(a - a_big), _tf32(w - w_big)
+
+    def step(products):
+        z = sum(p.double() @ q.double() for p, q in products) + b.double()
+        i, f, g, o = z.chunk(4, dim=-1)
+        c_new = (torch.sigmoid(f) * c.double()
+                 + torch.sigmoid(i) * torch.tanh(g))
+        return (torch.sigmoid(o) * torch.tanh(c_new)).float(), c_new.float()
+
+    _assert_close(step([(a_big, w_big), (a_big, w_small), (a_small, w_big)]),
+                  plain, "float32")
+    with pytest.raises(AssertionError):
+        _assert_close(step([(a_big, w_big)]), plain, "float32")
