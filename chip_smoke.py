@@ -26,17 +26,31 @@ without them. It:
      and that the ground-truth programs score execution 1.0 on the seen
      and the unseen demos (replay + VM on the card); then times one eval
      forward with the kernel against one with the plain LSTM step;
-  5. prints one JSON line describing the kernels, then the result line
+  5. train phase: builds the port's Trainer through trainer_cli's parser
+     (--device cuda, units 512, bs 32, k=10, cell_impl pallas) on the same
+     split and trains 30 steps (log every 10, one test-sample eval,
+     checkpoint at 30); checks that every forward LSTM step went through
+     the kernel (30 x (4*T + L) + 190 per test-sample eval), that the loss
+     is finite and its mean over the last log window is below the first
+     window's; compares one step's loss, grad norm and every gradient on
+     the card (kernel forward, recomputing backward) with the CPU (plain)
+     and with the card's plain step under autograd; evaluates the final
+     checkpoint through the Evaler; times forward, backward and optimizer
+     of a step with the kernel against the plain step, in turns;
+  6. prints one JSON line describing the kernels, then the result line
      {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 TF32 is off throughout: every comparison is against f32 references.
 """
 
+import contextlib
+import copy
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -45,6 +59,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from demo2program_tpu_torch.cli import trainer_cli
 from demo2program_tpu_torch.cli.evaler_cli import parse_args
 from demo2program_tpu_torch.data.karel_memory import (
     SplitConfig, generate_split)
@@ -55,7 +70,10 @@ from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
-from demo2program_tpu_torch.train.step import to_device
+from demo2program_tpu_torch.train import checkpoint
+from demo2program_tpu_torch.train.step import (
+    forward_loss, global_norm, to_device)
+from demo2program_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "smoke")
@@ -72,6 +90,18 @@ KERNEL_SHAPES = [(B, D) for D in (48, 512) for B in (32, 320)]
 # the model on the card vs the plain path on the CPU, same weights: f32
 # sums in other orders through 2*T + L LSTM steps
 MODEL_ATOL = 1e-3
+TRAIN_STEPS, TRAIN_LOG_STEP = 30, 10
+# one train step's gradients, card vs CPU and kernel vs plain step, same
+# weights and batch: per parameter, max |diff| <= GRAD_RTOL * max |g| +
+# GRAD_ATOL. f32 sums in other orders (cuDNN, cuBLAS, the kernel's 3xTF32
+# products) through 4*T + L LSTM steps and back; GRAD_ATOL covers the
+# biases that feed BatchNorm (per_embed's, whose gradient is 0 in exact
+# arithmetic, and the rn_pool FCs'), whose gradients are sums of terms
+# that nearly cancel: small, with the absolute f32 error of the sum.
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-5
+LOSS_ATOL, NORM_RTOL = 1e-4, 1e-4
+GRAD_ITEMS = 8  # items of the card-vs-CPU step
+TIMING_REPS = 3  # of the turns kernel, plain, plain, kernel
 
 
 def check(cond, msg):
@@ -321,7 +351,170 @@ def slice_phase():
     fwd = forward_phase(evaler, split)
     print("slice: eval forward of one batch, median s " + json.dumps(fwd),
           flush=True)
-    return launches
+    return split, launches
+
+
+def step_grads(model, cfg, batch):
+    """One train-mode forward and backward (no update) on a copy of `model`
+    -> (loss, grad norm, {parameter: gradient on the CPU})."""
+    model = copy.deepcopy(model)
+    loss, _ = forward_loss(model, cfg, batch)
+    loss.backward()
+    named = list(model.named_parameters())
+    norm = global_norm([p.grad for _, p in named])
+    return (loss.item(), norm.item(),
+            {n: p.grad.detach().cpu() for n, p in named})
+
+
+def compare_grads(what, a, b):
+    """Largest |diff| of loss, grad norm and gradients between two
+    step_grads results, checked against the stated tolerances."""
+    loss_err = abs(a[0] - b[0])
+    norm_err = abs(a[1] - b[1]) / abs(b[1])
+    errs = {name: ((a[2][name] - g).abs().max().item(),
+                   GRAD_RTOL * g.abs().max().item() + GRAD_ATOL)
+            for name, g in b[2].items()}
+    worst = max(errs, key=lambda n: errs[n][0] / errs[n][1])
+    ratio = errs[worst][0] / errs[worst][1]
+    out = {"loss_abs_diff": loss_err, "grad_norm_rel_diff": norm_err,
+           "max_grad_abs_diff": max(e for e, _ in errs.values()),
+           "worst_grad": worst, "worst_grad_abs_diff": errs[worst][0],
+           "worst_grad_over_bound": ratio}
+    print(f"train: {what} " + json.dumps(out), flush=True)
+    check(loss_err <= LOSS_ATOL, f"{what}: loss differs by {loss_err}")
+    check(norm_err <= NORM_RTOL, f"{what}: grad norm differs by {norm_err}")
+    check(ratio <= 1.0, f"{what}: gradient of {worst} differs by "
+          f"{errs[worst][0]}, over {GRAD_RTOL} * max|g| + {GRAD_ATOL}")
+    return out
+
+
+def step_times(trainer, batch):
+    """Seconds of forward, backward and optimizer of one train step, each
+    ended by a synchronise."""
+    state, cfg = trainer.state, trainer.cfg
+
+    def now():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t0 = now()
+    loss, _ = forward_loss(state.model, cfg, batch)
+    t1 = now()
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    t2 = now()
+    state.apply_gradients()
+    t3 = now()
+    return {"forward": t1 - t0, "backward": t2 - t1, "optimizer": t3 - t2,
+            "total": t3 - t0}
+
+
+def time_train_steps(trainer, batch, steps=3):
+    """Median seconds of a step's phases with every LSTM step in the kernel
+    vs in the plain version (its autograd), in turns kernel, plain, plain,
+    kernel; the first step of each turn is a warm-up."""
+    runs = {"kernel": [], "plain": []}
+    for _ in range(TIMING_REPS):
+        for name in ("kernel", "plain", "plain", "kernel"):
+            with (mock.patch.object(fused_lstm, "fused_lstm_step",
+                                    fused_lstm.lstm_step_ref)
+                  if name == "plain" else contextlib.nullcontext()):
+                step_times(trainer, batch)
+                runs[name] += [step_times(trainer, batch)
+                               for _ in range(steps)]
+    return {name: {k: float(np.median([r[k] for r in rs])) for k in rs[0]}
+            for name, rs in runs.items()}
+
+
+def train_phase(split):
+    train_dir = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    args = trainer_cli.parse_args([
+        "--device", "cuda", "--dataset_path", "in-memory",
+        "--train_dir", train_dir, "--num_k", str(SPLIT.k),
+        "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
+        "--cell_impl", "pallas", "--seed", str(SEED),
+        "--max_steps", str(TRAIN_STEPS), "--log_step", str(TRAIN_LOG_STEP),
+        "--test_sample_step", str(TRAIN_STEPS),
+        "--ckpt_save_step", str(TRAIN_STEPS)])
+    trainer = Trainer(args, split, split, device=args.device)
+    cfg = trainer.cfg
+    T, L = cfg.max_demo_len, cfg.max_program_len
+    per_step, per_sample = 4 * T + L, 5 * T + 2 * L
+    losses = []
+    train_step = trainer.train_step
+
+    def recorded(batch):  # keeps each step's loss on the card: no sync
+        report = train_step(batch)
+        losses.append(report["loss"])
+        return report
+
+    trainer.train_step = recorded
+    fused_lstm.fused_lstm_step.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_lstm.fused_lstm_step.launches
+    trainer.train_step = train_step
+    samples = len(range(0, TRAIN_STEPS, args.test_sample_step))
+    expected = TRAIN_STEPS * per_step + samples * per_sample
+    check(launches == expected,
+          f"{launches} kernel launches in {TRAIN_STEPS} train steps and "
+          f"{samples} test-sample evals, expected {TRAIN_STEPS} x "
+          f"{per_step} + {samples} x {per_sample} = {expected}")
+    losses = torch.stack(losses).cpu().numpy()
+    windows = losses.reshape(-1, TRAIN_LOG_STEP).mean(axis=1)
+    check(np.isfinite(losses).all(), "non-finite train loss")
+    check(windows[-1] < windows[0],
+          f"mean loss of the last log window {windows[-1]} is not below "
+          f"the first one's {windows[0]}")
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    times = {r["step"]: r["time"] for r in rows if r["split"] == "train"}
+    ckpt = checkpoint.latest_checkpoint(train_dir)
+    check(ckpt == checkpoint.checkpoint_path(train_dir, TRAIN_STEPS),
+          f"newest checkpoint {ckpt}")
+
+    # one step from the trained weights: card vs CPU, kernel vs plain
+    batch = split.get_batch_compact(split.ids[:GRAD_ITEMS])
+    card = to_device(batch, trainer.device)
+    on_card = step_grads(trainer.model, cfg, card)
+    cpu_model = FullModel(cfg)
+    cpu_model.load_state_dict(trainer.model.state_dict())
+    vs_cpu = compare_grads("card vs CPU", on_card, step_grads(
+        cpu_model, cfg, to_device(batch, "cpu")))
+    with mock.patch.object(fused_lstm, "fused_lstm_step",
+                           fused_lstm.lstm_step_ref):
+        plain = step_grads(trainer.model, cfg, card)
+    vs_plain = compare_grads("kernel vs plain step", on_card, plain)
+
+    eval_args = parse_args([
+        "--dataset_path", "in-memory", "--checkpoint", ckpt,
+        "--num_k", str(SPLIT.k), "--batch_size", str(BATCH),
+        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
+        "--max_steps", "1", "--quiet", "--no_write_summary"])
+    evaler = Evaler(eval_args, split, device=eval_args.device)
+    for name, t in trainer.model.state_dict().items():
+        check(torch.equal(evaler.model.state_dict()[name], t),
+              f"the Evaler's {name} is not the trained one")
+    loss, acc, hist = evaler.eval_run()
+    check(all(np.isfinite(v).all() for d in (loss, acc, hist)
+              for v in d.values()), "non-finite eval of the checkpoint")
+
+    timing = time_train_steps(trainer, trainer.cache.batch(0))
+    summary = {
+        "units": UNITS, "batch_size": BATCH, "k": cfg.k, "T": T, "L": L,
+        "steps": TRAIN_STEPS, "seconds": seconds,
+        "trainer_s_per_step": (times[TRAIN_STEPS] - times[TRAIN_LOG_STEP])
+        / (TRAIN_STEPS - TRAIN_LOG_STEP),
+        "launches": launches, "launches_expected": expected,
+        "launches_per_step": per_step, "test_samples": samples,
+        "loss_windows": windows.tolist(), "eval_loss": loss["loss"],
+        "card_vs_cpu": vs_cpu, "kernel_vs_plain": vs_plain,
+        "step_s": timing}
+    print("train " + json.dumps(summary), flush=True)
+    return summary
 
 
 def main():
@@ -337,7 +530,8 @@ def main():
 
     build_phase()
     rows = kernel_phase()
-    launches = slice_phase()
+    split, launches = slice_phase()
+    train = train_phase(split)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     main_shape = next(r for r in f32 if r["B"] == 320 and r["D"] == 512)
@@ -346,7 +540,7 @@ def main():
         "name": "fused_lstm_step", "route": "cuda",
         "source": "demo2program_tpu_torch/csrc/fused_lstm.cu",
         "replaces": "demo2program_tpu/ops/pallas_lstm.py:70",
-        "launches": launches,
+        "launches": launches, "train_launches": train["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in f32),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "device_ms": main_shape["device_ms"],

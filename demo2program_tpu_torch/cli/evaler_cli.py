@@ -4,9 +4,12 @@
         --dataset_path datasets/karel_dataset --checkpoint model.pt
 
 Flags follow demo2program_tpu/cli/evaler_cli.py (the shared
-demo2program_tpu.cli.flags parser); the options this slice has not ported
-(beam and syntax decoding, --pred_program, --result_data, --train_dir,
---sweep_steps) are absent. Reading an HDF5 dataset needs h5py.
+demo2program_tpu.cli.flags parser), plus `--device {cuda,cpu}` (default
+cuda; without a card, cuda raises). `--checkpoint` takes a trainer
+checkpoint or a bare state_dict; `--train_dir` evaluates its newest
+checkpoint. The options not ported yet (beam and syntax decoding,
+--pred_program, --result_data, --sweep_steps) are absent. Reading an HDF5
+dataset needs h5py.
 """
 
 from demo2program_tpu.cli.flags import base_parser
@@ -17,6 +20,10 @@ def build_parser():
     p.set_defaults(batch_size=20)
     p.add_argument("--dataset_split", type=str, default="test",
                    choices=["train", "test", "val"])
+    p.add_argument("--train_dir", type=str, default="",
+                   help="evaluate the newest checkpoint in this train_dir")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
     p.add_argument("--max_steps", type=int, default=0,
                    help="number of batches; 0 = the whole split")
     p.add_argument("--quiet", action="store_true", default=False)
@@ -36,15 +43,17 @@ def main(argv=None):
 
     from demo2program_tpu.data.dataset import create_default_splits
     from demo2program_tpu_torch.eval.evaler import Evaler
+    from demo2program_tpu_torch.train.step import resolve_device
 
     args = parse_args(argv)
+    resolve_device(args.device)
     # results are compared with f32 references: no TF32 in convs or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     splits = create_default_splits(args.dataset_path, num_k=args.num_k,
                                    is_train=False)
     target = dict(zip(["train", "test", "val"], splits))[args.dataset_split]
-    Evaler(args, target).eval_run()
+    Evaler(args, target, device=args.device).eval_run()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,75 @@
+"""Training entry point of the port (Karel full model).
+
+    python -m demo2program_tpu_torch.cli.trainer_cli \
+        --dataset_path datasets/karel_dataset --num_k 10 --device cuda
+
+Flags follow demo2program_tpu/cli/trainer_cli.py (the shared
+demo2program_tpu.cli.flags parsers), plus `--device {cuda,cpu}` (default
+cuda; without a card, cuda raises). Relaunching a finished stage logs
+"Nothing to do" before loading any data. Reading an HDF5 dataset needs
+h5py; train/trainer.py:Trainer takes any split with `ids` and
+`get_batch_compact`, such as data/karel_memory.py's in-memory split.
+"""
+
+import json
+import os
+
+from demo2program_tpu.cli.flags import add_train_flags, base_parser
+from demo2program_tpu.utils import log
+from demo2program_tpu_torch.train.checkpoint import checkpoint_steps
+
+
+def build_parser():
+    p = add_train_flags(base_parser())
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"])
+    return p
+
+
+def parse_args(argv=None):
+    return build_parser().parse_args(argv)
+
+
+def _stage_already_done(train_dir):
+    """True when `train_dir` holds a checkpoint at (or past) the target
+    recorded in its resume.json."""
+    resume = os.path.join(train_dir or "", "resume.json")
+    if not (train_dir and os.path.exists(resume)):
+        return False
+    try:
+        with open(resume) as f:
+            target = int(json.load(f)["target_step"])
+    except (ValueError, KeyError, OSError):
+        return False
+    steps = checkpoint_steps(train_dir)
+    return bool(steps) and steps[-1] >= target
+
+
+def main(argv=None):
+    import torch
+
+    from demo2program_tpu_torch.train.step import resolve_device
+
+    args = parse_args(argv)
+    resolve_device(args.device)
+    if _stage_already_done(args.train_dir):
+        log.infov("Nothing to do: %s already reached its resume.json "
+                  "target", args.train_dir)
+        return
+    # results are compared with f32 references: no TF32 in convs or matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from demo2program_tpu.data.dataset import create_default_splits
+    from demo2program_tpu_torch.train.trainer import Trainer
+
+    ds_train, ds_test, _ = create_default_splits(args.dataset_path,
+                                                 num_k=args.num_k)
+    trainer = Trainer(args, ds_train, ds_test, device=args.device)
+    log.warning("dataset: %s, learning_rate: %f", args.dataset_path,
+                args.learning_rate)
+    trainer.train(max_steps=args.max_steps)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,10 +7,13 @@ per-batch and final loss/accuracy/histogram report lines
 `<ckpt>_report_testdata{N}_num_k{K}.txt`.
 
 Differences from the JAX evaler:
-  * the checkpoint is the port's own `torch.save`d state_dict
-    (`--checkpoint x.pt`, see `save_checkpoint`); JAX checkpoints come over
-    through models/convert.py. Without one the model is drawn from
-    `--seed`;
+  * the checkpoint is the port's own: a trainer checkpoint
+    (`<train_dir>/ckpt/<step>.pt`, train/checkpoint.py) or a bare
+    `torch.save`d state_dict (`save_checkpoint`), by `--checkpoint`, or the
+    newest one of `--train_dir`; JAX checkpoints come over through
+    models/convert.py. Without one the model is drawn from `--seed`;
+  * the device is explicit (`device`, the CLI's `--device`, default
+    "cuda"): asking for the card without one raises, nothing falls back;
   * the config comes from a compact batch (`config_from_dataset`), so a
     split only needs `ids` and `get_batch_compact(ids)`: an HDF5
     KarelDataset or an in-memory split (data/karel_memory.py);
@@ -35,7 +38,9 @@ from demo2program_tpu_torch.eval.scorer import KarelScorer
 from demo2program_tpu_torch.models.common import ModelConfig
 from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
-from demo2program_tpu_torch.train.step import make_eval_step, to_device
+from demo2program_tpu_torch.train import checkpoint as ckpt_io
+from demo2program_tpu_torch.train.step import (
+    make_eval_step, resolve_device, to_device)
 
 
 def config_from_dataset(args, dataset):
@@ -78,18 +83,20 @@ def save_checkpoint(model, path):
 
 
 class Evaler:
-    def __init__(self, args, dataset, device=None):
+    def __init__(self, args, dataset, device="cuda"):
         self.args = args
         self.dataset = dataset
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.cfg = config_from_dataset(args, dataset)
         self.vocab = KarelVocab()
         model = FullModel(self.cfg)
         self.checkpoint = args.checkpoint or ""
+        train_dir = getattr(args, "train_dir", "")
+        if not self.checkpoint and train_dir:
+            self.checkpoint = ckpt_io.latest_checkpoint(train_dir) or ""
         if self.checkpoint:
-            model.load_state_dict(torch.load(
-                self.checkpoint, map_location="cpu", weights_only=True))
+            model.load_state_dict(ckpt_io.model_state_dict(
+                ckpt_io.load(self.checkpoint)))
             log.info("Loaded from checkpoint: %s", self.checkpoint)
             self.checkpoint_name = os.path.splitext(
                 os.path.basename(self.checkpoint))[0]

@@ -1,10 +1,13 @@
-"""Full model: two-pass summarizer encoder + multi-task heads, eval mode.
+"""Full model: two-pass summarizer encoder + multi-task heads.
 
 Port of demo2program_tpu/models/full.py (`model_full.py`): program decoder
 started from the residual rn summaries, per-demo action decoders and
 perception decoders with weights shared across the k demos (k folded into
 the batch). Program decoding is greedy (the greedy branch of
-demo2program_tpu/models/synthesis.py:_decode_program).
+demo2program_tpu/models/synthesis.py:_decode_program); the train step skips
+both greedy decoders (`include_greedy=False`). Train or eval mode is torch's
+`train()` / `eval()`, the flax `train` field. Scheduled sampling is not
+ported.
 
 The "greedy" perception head is teacher-forced (`model_full.py:409`), so
 the same tensor is exposed under both names.
@@ -26,6 +29,8 @@ class FullModel(nn.Module):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype!r} is not ported")
+        if cfg.scheduled_sampling:
+            raise NotImplementedError("scheduled sampling is not ported")
         self.cfg = cfg
         units = cfg.num_lstm_cell_units
         self.encoder = TwoPassDemoEncoder(cfg)
@@ -37,7 +42,7 @@ class FullModel(nn.Module):
             cfg.action_space, units, cfg.action_space - 1, cfg.cell_impl)
         self.per_decoder = VectorDecoder(cfg.per_dim, units, cfg.cell_impl)
 
-    def forward(self, batch):
+    def forward(self, batch, include_greedy=True):
         """batch: the expanded batch (ops/reconstruct.py:expand_batch)."""
         cfg = self.cfg
         bs = batch["s_h"].shape[0]
@@ -58,6 +63,8 @@ class FullModel(nn.Module):
         per_logits = self.per_decoder(a_c, a_h, fold_k(batch["per"]))
         out["pred_per_logits"] = unfold_k(per_logits, bs, k)
         out["greedy_per_logits"] = out["pred_per_logits"]
+        if not include_greedy:
+            return out
 
         g_logits, g_tokens, g_len = self.program_decoder.greedy(
             enc["demo_c_summary"], enc["demo_h_summary"],

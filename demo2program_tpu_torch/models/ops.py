@@ -2,7 +2,10 @@
 
 Port of demo2program_tpu/models/ops.py. Quirks kept:
   * BNAct applies the ACTIVATION FIRST, then batch norm (eps 1e-3);
-  * lrelu has leak 0.2 in the f1/f2 form;
+  * lrelu has leak 0.2 in the f1/f2 form, and its derivative at 0 is
+    JAX's: d|x|/dx = 1 at x = 0 (torch.abs gives 0). Exact zeros are common
+    in training: the zero-padded frames past each demo's length meet zero
+    conv biases at initialisation;
   * convs are 3x3, stride 2, with flax/TF "SAME" padding: for stride 2 on
     the Karel grids (8 -> 4 -> 2 -> 1) that pads 0 before and 1 after, which
     `padding=1` would not reproduce.
@@ -25,7 +28,7 @@ from torch import nn
 from demo2program_tpu_torch.ops.fused_lstm import FusedLSTMCell
 
 BN_EPS = 1e-3
-BN_MOMENTUM = 0.1  # flax momentum 0.9; only read by training
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch statistic
 
 
 def make_lstm_cell(in_features, units, impl="xla"):
@@ -40,22 +43,44 @@ def make_lstm_cell(in_features, units, impl="xla"):
 def lrelu(x, leak=0.2):
     f1 = 0.5 * (1 + leak)
     f2 = 0.5 * (1 - leak)
-    return f1 * x + f2 * torch.abs(x)
+    return f1 * x + f2 * torch.where(x >= 0, x, -x)
+
+
+def batch_norm_train(bn, x):
+    """flax `BatchNorm(use_running_average=False)` on the channels of dim 1,
+    with the parameters and buffers of the torch module `bn`: normalise with
+    the batch mean and the BIASED batch variance, computed as flax does
+    (E[x^2] - E[x]^2, clipped at 0), and move the running statistics by
+    running = 0.9 * running + 0.1 * batch. torch's own training mode moves
+    running_var by the unbiased variance (a factor n / (n - 1))."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    mean = x.mean(dims)
+    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        for running, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            running.copy_(BN_MOMENTUM * running + (1.0 - BN_MOMENTUM) * stat)
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.reshape(shape)) * scale.reshape(shape) + bn.bias.reshape(
+        shape)
 
 
 class BNAct(nn.Module):
     """activation ('lrelu' | 'none') -> batch norm over dim 1 (the
-    reference order)."""
+    reference order). `train()` / `eval()` is the flax `train` field:
+    batch statistics (updating the running ones) or running statistics."""
 
     def __init__(self, features, activation="lrelu", spatial=False):
         super().__init__()
         self.activation = activation
         bn_cls = nn.BatchNorm2d if spatial else nn.BatchNorm1d
-        self.bn = bn_cls(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = bn_cls(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
     def forward(self, x):
         if self.activation == "lrelu":
             x = lrelu(x)
+        if self.training:
+            return batch_norm_train(self.bn, x)
         return self.bn(x)
 
 

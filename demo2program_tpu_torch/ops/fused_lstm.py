@@ -12,6 +12,15 @@ plain version `lstm_step_ref`; CUDA tensors launch the kernel in
 csrc/fused_lstm.cu or raise. There is no fallback from the kernel to the
 plain version. `fused_lstm_step.launches` counts kernel launches.
 
+Gradients (pallas_lstm.py:92-107): when grad is enabled and an input needs
+one, the step runs through `FusedLSTMStep`, an autograd Function whose
+forward is the same dispatch on detached inputs and whose backward
+recomputes `lstm_step_ref` from the saved (x, h, c, W, b) and
+differentiates it, as the JAX custom VJP's `_bwd` runs `jax.vjp` of
+`_lstm_step_ref`. The JAX backward is jnp, not Pallas, so the backward here
+is plain PyTorch on either device. Under `torch.no_grad()` the step is the
+direct dispatch.
+
 The TPU cell's VMEM-size fallback and 128-lane padding are TPU rules and are
 not carried over: the CUDA kernel masks its own ragged edges.
 """
@@ -96,15 +105,10 @@ def _check(x, h, c, w, b):
             f"fused_lstm_step: shapes x{tuple(x.shape)} h{tuple(h.shape)} "
             f"c{tuple(c.shape)} w{tuple(w.shape)} b{tuple(b.shape)} do not "
             f"fit x (B, D), h/c (B, H), w (D+H, 4H), b (4H,)")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in tensors.values()):
-        raise NotImplementedError(
-            "fused_lstm_step has no backward kernel yet; run under "
-            "torch.no_grad()")
 
 
-def fused_lstm_step(x, h, c, w, b):
-    """One LSTM step -> (h', c'). CPU: plain version. CUDA: the kernel."""
+def _step(x, h, c, w, b):
+    """Forward without autograd. CPU: plain version. CUDA: the kernel."""
     if x.device.type == "cpu":
         return lstm_step_ref(x, h, c, w, b)
     if x.device.type != "cuda":
@@ -125,6 +129,32 @@ def fused_lstm_step(x, h, c, w, b):
                            f"error {err}")
     fused_lstm_step.launches += 1
     return h_out, c_out
+
+
+class FusedLSTMStep(torch.autograd.Function):
+    """The step with the JAX custom VJP's backward: recompute the plain
+    version from the saved inputs and take its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, x, h, c, w, b):
+        ctx.save_for_backward(x, h, c, w, b)
+        return _step(x, h, c, w, b)
+
+    @staticmethod
+    def backward(ctx, dh, dc):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outputs = lstm_step_ref(*inputs)
+        return torch.autograd.grad(outputs, inputs, (dh, dc))
+
+
+def fused_lstm_step(x, h, c, w, b):
+    """One LSTM step -> (h', c'). CPU: plain version. CUDA: the kernel.
+    Differentiable through `FusedLSTMStep` when grad is enabled."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, h, c, w, b)):
+        return FusedLSTMStep.apply(x, h, c, w, b)
+    return _step(x, h, c, w, b)
 
 
 fused_lstm_step.launches = 0

@@ -1,7 +1,16 @@
-"""Eval step (f32, greedy decode).
+"""Train and eval steps (f32).
 
-Port of the eval half of demo2program_tpu/train/step.py. The training step
-(Adam, clip 20, the LSTM backward) comes with the training slice.
+Port of demo2program_tpu/train/step.py: Adam (optax `adam`: b1 0.9, b2
+0.999, eps 1e-8 outside the square root) after clipping by global norm 20
+(optax `clip_by_global_norm`), an optional staircase decay of the learning
+rate (x0.5 every 10k updates, `--lr_weight_decay`), and the eval step with
+greedy decode. Scheduled sampling and bf16 compute are not ported.
+
+The train step runs eagerly: forward in train mode (BatchNorm on batch
+statistics, no greedy decoders), the full objective, backward (every LSTM
+step's forward in the CUDA kernel, its backward the plain recomputation,
+ops/fused_lstm.py), clip, Adam. Nothing in it copies to the host: the
+report holds 0-d tensors on the model's device.
 """
 
 import torch
@@ -10,6 +19,8 @@ from demo2program_tpu_torch.models import objective
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 
 NON_TENSOR_KEYS = ("id",)
+CLIP_NORM = 20.0
+DECAY_STEPS, DECAY_RATE = 10000, 0.5
 
 
 def strip_non_tensor(batch):
@@ -21,6 +32,102 @@ def to_device(batch, device):
     """numpy/tensor batch -> dict of tensors on `device` (ids dropped)."""
     return {k: torch.as_tensor(v, device=device)
             for k, v in strip_non_tensor(batch).items()}
+
+
+def resolve_device(name):
+    """torch.device(name), refusing "cuda" when no card can be used: a run
+    asked for on the card never quietly runs elsewhere."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asked for, but CUDA is not "
+                           f"available; pass --device cpu to run on the CPU")
+    return device
+
+
+def learning_rate_at(learning_rate, count, lr_weight_decay=False):
+    """The rate of the update that follows `count` applied updates: optax
+    exponential_decay(lr, 10000, 0.5, staircase=True) or the constant."""
+    if not lr_weight_decay:
+        return learning_rate
+    return learning_rate * DECAY_RATE ** (count // DECAY_STEPS)
+
+
+def global_norm(tensors):
+    """optax.global_norm: sqrt of the sum of squares of every element."""
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+def clip_by_global_norm_(tensors, norm):
+    """optax.clip_by_global_norm(20), in place: unchanged when norm < 20,
+    else (t / norm) * 20. No host sync: the choice is made on the device.
+    (torch's clip_grad_norm_ scales by 20 / (norm + 1e-6).)"""
+    keep = norm < CLIP_NORM
+    for t in tensors:
+        t.copy_(torch.where(keep, t, t / norm * CLIP_NORM))
+
+
+class TrainState:
+    """Step count (updates applied), model (parameters and BN running
+    statistics) and optimizer (Adam moments)."""
+
+    def __init__(self, model, learning_rate, lr_weight_decay=False):
+        self.step = 0
+        self.model = model
+        self.learning_rate = learning_rate
+        self.lr_weight_decay = lr_weight_decay
+        self.params = list(model.parameters())
+        self.optimizer = torch.optim.Adam(
+            self.params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+    def apply_gradients(self):
+        """Clip the parameters' gradients by global norm 20, take one Adam
+        step at the scheduled rate -> the norm before clipping. A parameter
+        without a gradient gets zeros, as in the JAX gradient tree."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        clip_by_global_norm_(grads, norm)
+        for group in self.optimizer.param_groups:
+            group["lr"] = learning_rate_at(self.learning_rate, self.step,
+                                           self.lr_weight_decay)
+        self.optimizer.step()
+        self.step += 1
+        return norm
+
+    def state_dict(self):
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state):
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+
+
+def forward_loss(model, cfg, batch):
+    """Train-mode forward of a compact or expanded batch (dict of tensors on
+    the model's device) -> (loss, report)."""
+    model.train()
+    batch = expand_batch(strip_non_tensor(batch), cfg)
+    out = model(batch, include_greedy=False)
+    return objective.compute_loss(cfg, out, batch)
+
+
+def make_train_step(state, cfg):
+    """-> train_step(batch) -> report: one update of `state`. The report
+    has the objective's scalars and `grad_norm`, the global norm of the
+    unclipped gradients (demo2program_tpu/train/step.py:129)."""
+
+    def train_step(batch):
+        loss, report = forward_loss(state.model, cfg, batch)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        report["grad_norm"] = state.apply_gradients()
+        return {k: v.detach() for k, v in report.items()}
+
+    return train_step
 
 
 def make_eval_step(model, cfg):

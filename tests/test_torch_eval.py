@@ -207,6 +207,7 @@ def test_cli_evaluates_an_hdf5_split(tmp_path):
     summary = tmp_path / "report.txt"
     evaler_cli.main(["--dataset_path", d, "--num_k", "3", "--batch_size",
                      "2", "--num_lstm_cell_units", "16", "--quiet",
+                     "--device", "cpu",
                      "--summary_file", str(summary)])
     text = summary.read_text()
     assert "[Final Avg Report]" in text and "Checkpoint: \n" in text
