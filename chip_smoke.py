@@ -11,12 +11,14 @@ without them. It:
      for sm_90a, prints the build time and ptxas's registers, shared memory
      and spills for every kernel instance, and checks that none spills;
   3. kernel phase: holds the kernel against its plain PyTorch version on the
-     card at every shape of the eval path (D in {48, 512}, H = 512,
-     B in {32, 320}, f32 and bf16), prints each launch's grid and block
-     count, and times both versions three ways: back-to-back calls from
-     Python (host-paced, `ms`), 50 calls captured in a CUDA graph and
-     replayed (device time, `device_ms`), and the host's own time per call
-     (`host_us`);
+     card at every shape of the full model's path (D in {48, 512},
+     H = 512, B in {32, 320}) and at the two only the induction baseline
+     runs ((B, D) = (320, 53) and (160, 1024)), f32 and bf16, prints each
+     launch's grid, block count and load path (`vec`: 16-byte async copies
+     or plain loads), and times both versions three ways: back-to-back
+     calls from Python (host-paced, `ms`), 50 calls captured in a CUDA
+     graph and replayed (device time, `device_ms`), and the host's own time
+     per call (`host_us`);
   4. slice phase: makes a seeded in-memory Karel split (k=10, test_k=5,
      T=20, L=45), saves a random-init FullModel at 512 units as a .pt,
      evaluates 3 batches of 32 through the port's Evaler with
@@ -35,9 +37,19 @@ without them. It:
      window's; compares one step's loss, grad norm and every gradient on
      the card (kernel forward, recomputing backward) with the CPU (plain)
      and with the card's plain step under autograd; evaluates the final
-     checkpoint through the Evaler; times forward, backward and optimizer
-     of a step with the kernel against the plain step, in turns;
-  6. prints one JSON line describing the kernels, then the result line
+     checkpoint through the Evaler (3 batches, 190 launches each); times
+     forward, backward and optimizer of a step with the kernel against the
+     plain step, in turns;
+  6. baselines phase: the same for synthesis_baseline, summarizer and
+     induction_baseline (lstm encoder, luong attention), 20 steps each:
+     exact launches (steps x (T + L | 2T + L | T + T_a) + one test-sample
+     eval x (T + 2L | 2T + 2L | T + 2T_a), T_a = T), a falling loss, one
+     step's gradients card vs CPU (and kernel vs plain step for induction,
+     whose kernel shapes are new), and an eval of the checkpoint through
+     the Evaler (finite; no program metrics for induction); prints each
+     family's trainer s/step and eval s/batch;
+  7. prints one JSON line describing the kernels, with each family's
+     launches and the baseline shapes' device times, then the result line
      {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -68,6 +80,7 @@ from demo2program_tpu_torch.eval.evaler import (
 from demo2program_tpu_torch.models import objective
 from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
+from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.train import checkpoint
@@ -87,6 +100,10 @@ SPLIT = SplitConfig(num_programs=BATCH * N_BATCHES, seed=SEED)
 # same bf16 inputs and round the result to bf16 (2^-8 relative).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}
 KERNEL_SHAPES = [(B, D) for D in (48, 512) for B in (32, 320)]
+# shapes only the induction baseline runs: its demo encoder's input, 48
+# CNN features + 5 percepts, at B = bs * k; its attention decoder's cell
+# input, [embedding, attention] = 2 * units, at B = bs * test_k
+BASELINE_SHAPES = [(320, 53), (160, 1024)]
 # the model on the card vs the plain path on the CPU, same weights: f32
 # sums in other orders through 2*T + L LSTM steps
 MODEL_ATOL = 1e-3
@@ -101,6 +118,8 @@ TRAIN_STEPS, TRAIN_LOG_STEP = 30, 10
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-5
 LOSS_ATOL, NORM_RTOL = 1e-4, 1e-4
 GRAD_ITEMS = 8  # items of the card-vs-CPU step
+FAMILIES = ("synthesis_baseline", "summarizer", "induction_baseline")
+BASELINE_STEPS, BASELINE_LOG_STEP = 20, 10
 TIMING_REPS = 3  # of the turns kernel, plain, plain, kernel
 
 
@@ -180,14 +199,15 @@ def build_phase():
 
 
 def kernel_phase():
-    """Kernel vs plain version at every eval-path shape -> list of rows."""
+    """Kernel vs plain version at every shape of the model paths -> list
+    of rows."""
     dev = torch.device("cuda")
     H = UNITS
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for B, D in KERNEL_SHAPES:
+        for B, D in KERNEL_SHAPES + BASELINE_SHAPES:
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=g, device=dev)
                         * scale).to(dtype)
@@ -214,6 +234,7 @@ def kernel_phase():
                    "max_abs_err": err, "atol": atol, "rtol": rtol,
                    "grid": [plan["grid_x"], plan["grid_y"], plan["grid_z"]],
                    "cluster": plan["cluster"], "blocks": plan["blocks"],
+                   "vec": plan["vec"],
                    "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                    "device_ms": device_ms(kernel),
                    "plain_device_ms": device_ms(plain),
@@ -276,7 +297,7 @@ def _eval_forward(model, cfg, raw, device):
     batch = expand_batch(to_device(raw, device), cfg)
     with torch.no_grad():
         out = model(batch)
-        _, report = objective.compute_loss(cfg, out, batch)
+        _, report = objective.compute_loss(cfg, out, batch, cfg.model)
     return report, out["pred_program_logits"].cpu()
 
 
@@ -315,7 +336,7 @@ def slice_phase():
 
     evaler = Evaler(args, split)
     cfg = evaler.cfg
-    per_batch = 5 * cfg.max_demo_len + 2 * cfg.max_program_len
+    per_batch = lstm_launches(cfg)[1]
     fused_lstm.fused_lstm_step.launches = 0
     loss, acc, hist = evaler.eval_run()
     launches = fused_lstm.fused_lstm_step.launches
@@ -358,7 +379,7 @@ def step_grads(model, cfg, batch):
     """One train-mode forward and backward (no update) on a copy of `model`
     -> (loss, grad norm, {parameter: gradient on the CPU})."""
     model = copy.deepcopy(model)
-    loss, _ = forward_loss(model, cfg, batch)
+    loss, _ = forward_loss(model, cfg, batch, cfg.model)
     loss.backward()
     named = list(model.named_parameters())
     norm = global_norm([p.grad for _, p in named])
@@ -380,7 +401,7 @@ def compare_grads(what, a, b):
            "max_grad_abs_diff": max(e for e, _ in errs.values()),
            "worst_grad": worst, "worst_grad_abs_diff": errs[worst][0],
            "worst_grad_over_bound": ratio}
-    print(f"train: {what} " + json.dumps(out), flush=True)
+    print(f"{what} " + json.dumps(out), flush=True)
     check(loss_err <= LOSS_ATOL, f"{what}: loss differs by {loss_err}")
     check(norm_err <= NORM_RTOL, f"{what}: grad norm differs by {norm_err}")
     check(ratio <= 1.0, f"{what}: gradient of {worst} differs by "
@@ -398,7 +419,7 @@ def step_times(trainer, batch):
         return time.perf_counter()
 
     t0 = now()
-    loss, _ = forward_loss(state.model, cfg, batch)
+    loss, _ = forward_loss(state.model, cfg, batch, cfg.model)
     t1 = now()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -426,21 +447,38 @@ def time_train_steps(trainer, batch, steps=3):
             for name, rs in runs.items()}
 
 
-def train_phase(split):
-    train_dir = os.path.join(OUT_DIR, "train")
+def lstm_launches(cfg):
+    """Kernel launches of one train step (no greedy decoders) and of one
+    eval batch (with them) of cfg.model: one per LSTM step of its encoders
+    and decoders. T_a, the width of the test demos' action rows that the
+    induction baseline decodes, is T in these splits."""
+    T, L = cfg.max_demo_len, cfg.max_program_len
+    T_a = T
+    return {"full": (4 * T + L, 5 * T + 2 * L),
+            "synthesis_baseline": (T + L, T + 2 * L),
+            "summarizer": (2 * T + L, 2 * T + 2 * L),
+            "induction_baseline": (T + T_a, T + 2 * T_a)}[cfg.model]
+
+
+def train_phase(split, model_name="full", steps=TRAIN_STEPS,
+                log_step=TRAIN_LOG_STEP, compare_plain=True,
+                time_steps=True):
+    """Train `model_name` through the Trainer, check launches, loss and one
+    step's gradients, evaluate the checkpoint through the Evaler."""
+    tag = "train" if model_name == "full" else model_name
+    train_dir = os.path.join(OUT_DIR, "train_" + model_name)
     shutil.rmtree(train_dir, ignore_errors=True)
     args = trainer_cli.parse_args([
-        "--device", "cuda", "--dataset_path", "in-memory",
-        "--train_dir", train_dir, "--num_k", str(SPLIT.k),
-        "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
-        "--cell_impl", "pallas", "--seed", str(SEED),
-        "--max_steps", str(TRAIN_STEPS), "--log_step", str(TRAIN_LOG_STEP),
-        "--test_sample_step", str(TRAIN_STEPS),
-        "--ckpt_save_step", str(TRAIN_STEPS)])
+        "--device", "cuda", "--model", model_name,
+        "--dataset_path", "in-memory", "--train_dir", train_dir,
+        "--num_k", str(SPLIT.k), "--batch_size", str(BATCH),
+        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
+        "--seed", str(SEED), "--max_steps", str(steps),
+        "--log_step", str(log_step), "--test_sample_step", str(steps),
+        "--ckpt_save_step", str(steps)])
     trainer = Trainer(args, split, split, device=args.device)
     cfg = trainer.cfg
-    T, L = cfg.max_demo_len, cfg.max_program_len
-    per_step, per_sample = 4 * T + L, 5 * T + 2 * L
+    per_step, per_sample = lstm_launches(cfg)
     losses = []
     train_step = trainer.train_step
 
@@ -452,69 +490,95 @@ def train_phase(split):
     trainer.train_step = recorded
     fused_lstm.fused_lstm_step.launches = 0
     t0 = time.perf_counter()
-    trainer.train(max_steps=TRAIN_STEPS)
+    trainer.train(max_steps=steps)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = fused_lstm.fused_lstm_step.launches
     trainer.train_step = train_step
-    samples = len(range(0, TRAIN_STEPS, args.test_sample_step))
-    expected = TRAIN_STEPS * per_step + samples * per_sample
+    samples = len(range(0, steps, args.test_sample_step))
+    expected = steps * per_step + samples * per_sample
     check(launches == expected,
-          f"{launches} kernel launches in {TRAIN_STEPS} train steps and "
-          f"{samples} test-sample evals, expected {TRAIN_STEPS} x "
+          f"{model_name}: {launches} kernel launches in {steps} train steps "
+          f"and {samples} test-sample evals, expected {steps} x "
           f"{per_step} + {samples} x {per_sample} = {expected}")
     losses = torch.stack(losses).cpu().numpy()
-    windows = losses.reshape(-1, TRAIN_LOG_STEP).mean(axis=1)
-    check(np.isfinite(losses).all(), "non-finite train loss")
+    windows = losses.reshape(-1, log_step).mean(axis=1)
+    check(np.isfinite(losses).all(), f"{model_name}: non-finite train loss")
     check(windows[-1] < windows[0],
-          f"mean loss of the last log window {windows[-1]} is not below "
-          f"the first one's {windows[0]}")
+          f"{model_name}: mean loss of the last log window {windows[-1]} "
+          f"is not below the first one's {windows[0]}")
     with open(os.path.join(train_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     times = {r["step"]: r["time"] for r in rows if r["split"] == "train"}
     ckpt = checkpoint.latest_checkpoint(train_dir)
-    check(ckpt == checkpoint.checkpoint_path(train_dir, TRAIN_STEPS),
-          f"newest checkpoint {ckpt}")
+    check(ckpt == checkpoint.checkpoint_path(train_dir, steps),
+          f"{model_name}: newest checkpoint {ckpt}")
 
     # one step from the trained weights: card vs CPU, kernel vs plain
     batch = split.get_batch_compact(split.ids[:GRAD_ITEMS])
     card = to_device(batch, trainer.device)
     on_card = step_grads(trainer.model, cfg, card)
-    cpu_model = FullModel(cfg)
+    cpu_model = get_model_class(model_name)(cfg)
     cpu_model.load_state_dict(trainer.model.state_dict())
-    vs_cpu = compare_grads("card vs CPU", on_card, step_grads(
+    vs_cpu = compare_grads(f"{tag}: card vs CPU", on_card, step_grads(
         cpu_model, cfg, to_device(batch, "cpu")))
-    with mock.patch.object(fused_lstm, "fused_lstm_step",
-                           fused_lstm.lstm_step_ref):
-        plain = step_grads(trainer.model, cfg, card)
-    vs_plain = compare_grads("kernel vs plain step", on_card, plain)
+    vs_plain = None
+    if compare_plain:
+        with mock.patch.object(fused_lstm, "fused_lstm_step",
+                               fused_lstm.lstm_step_ref):
+            plain = step_grads(trainer.model, cfg, card)
+        vs_plain = compare_grads(f"{tag}: kernel vs plain step", on_card,
+                                 plain)
 
     eval_args = parse_args([
-        "--dataset_path", "in-memory", "--checkpoint", ckpt,
-        "--num_k", str(SPLIT.k), "--batch_size", str(BATCH),
-        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
-        "--max_steps", "1", "--quiet", "--no_write_summary"])
+        "--model", model_name, "--dataset_path", "in-memory",
+        "--checkpoint", ckpt, "--num_k", str(SPLIT.k),
+        "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
+        "--cell_impl", "pallas", "--max_steps", str(N_BATCHES), "--quiet",
+        "--no_write_summary"])
     evaler = Evaler(eval_args, split, device=eval_args.device)
     for name, t in trainer.model.state_dict().items():
         check(torch.equal(evaler.model.state_dict()[name], t),
               f"the Evaler's {name} is not the trained one")
+    fused_lstm.fused_lstm_step.launches = 0
     loss, acc, hist = evaler.eval_run()
+    eval_launches = fused_lstm.fused_lstm_step.launches
+    check(eval_launches == N_BATCHES * per_sample,
+          f"{model_name}: {eval_launches} kernel launches in {N_BATCHES} "
+          f"eval batches, expected {N_BATCHES} x {per_sample}")
     check(all(np.isfinite(v).all() for d in (loss, acc, hist)
               for v in d.values()), "non-finite eval of the checkpoint")
+    has_program = any("program" in k for d in (loss, acc, hist) for k in d)
+    check(has_program == (model_name != "induction_baseline"),
+          f"{model_name}: program metrics in the eval report: {has_program}")
 
-    timing = time_train_steps(trainer, trainer.cache.batch(0))
     summary = {
-        "units": UNITS, "batch_size": BATCH, "k": cfg.k, "T": T, "L": L,
-        "steps": TRAIN_STEPS, "seconds": seconds,
-        "trainer_s_per_step": (times[TRAIN_STEPS] - times[TRAIN_LOG_STEP])
-        / (TRAIN_STEPS - TRAIN_LOG_STEP),
+        "model": model_name, "units": UNITS, "batch_size": BATCH,
+        "k": cfg.k, "T": cfg.max_demo_len, "L": cfg.max_program_len,
+        "steps": steps, "seconds": seconds,
+        "trainer_s_per_step": (times[steps] - times[log_step])
+        / (steps - log_step),
         "launches": launches, "launches_expected": expected,
-        "launches_per_step": per_step, "test_samples": samples,
-        "loss_windows": windows.tolist(), "eval_loss": loss["loss"],
-        "card_vs_cpu": vs_cpu, "kernel_vs_plain": vs_plain,
-        "step_s": timing}
-    print("train " + json.dumps(summary), flush=True)
+        "launches_per_step": per_step, "launches_per_eval": per_sample,
+        "test_samples": samples, "loss_windows": windows.tolist(),
+        "eval_loss": loss["loss"], "eval_s_per_batch":
+        evaler.timings["batch"], "eval_forward_s": evaler.timings["forward"],
+        "card_vs_cpu": vs_cpu, "kernel_vs_plain": vs_plain}
+    if time_steps:
+        summary["step_s"] = time_train_steps(trainer, trainer.cache.batch(0))
+    print(f"{tag} " + json.dumps(summary), flush=True)
     return summary
+
+
+def baselines_phase(split):
+    """The three baseline families, each trained BASELINE_STEPS steps and
+    evaluated; kernel vs plain step only for the induction baseline, the
+    one family whose kernel shapes no other path runs."""
+    return {name: train_phase(split, name, BASELINE_STEPS,
+                              BASELINE_LOG_STEP,
+                              compare_plain=name == "induction_baseline",
+                              time_steps=False)
+            for name in FAMILIES}
 
 
 def main():
@@ -532,6 +596,7 @@ def main():
     rows = kernel_phase()
     split, launches = slice_phase()
     train = train_phase(split)
+    baselines = baselines_phase(split)
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     main_shape = next(r for r in f32 if r["B"] == 320 and r["D"] == 512)
@@ -547,6 +612,12 @@ def main():
         "plain_device_ms": main_shape["plain_device_ms"],
         "b32_device_ms": decoder["device_ms"],
         "b32_plain_device_ms": decoder["plain_device_ms"],
+        "family_launches": {"full": train["launches"], **{
+            name: b["launches"] for name, b in baselines.items()}},
+        "baseline_shapes": [
+            {k: r[k] for k in ("B", "D", "dtype", "max_abs_err", "vec",
+                               "blocks", "device_ms", "plain_device_ms")}
+            for r in rows if (r["B"], r["D"]) in BASELINE_SHAPES],
         "shapes": rows}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
-"""Evaluation entry point of the port (greedy decode, Karel full model).
+"""Evaluation entry point of the port (greedy decode): the Karel model
+families `--model full | synthesis_baseline | summarizer |
+induction_baseline` (default full); an induction checkpoint reports action
+accuracies and no program ones.
 
     python -m demo2program_tpu_torch.cli.evaler_cli \
-        --dataset_path datasets/karel_dataset --checkpoint model.pt
+        --dataset_path datasets/karel_dataset --checkpoint model.pt \
+        --model synthesis_baseline
 
 Flags follow demo2program_tpu/cli/evaler_cli.py (the shared
 demo2program_tpu.cli.flags parser), plus `--device {cuda,cpu}` (default

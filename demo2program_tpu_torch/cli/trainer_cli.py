@@ -1,7 +1,9 @@
-"""Training entry point of the port (Karel full model).
+"""Training entry point of the port: the Karel model families `--model
+full | synthesis_baseline | summarizer | induction_baseline` (default full).
 
     python -m demo2program_tpu_torch.cli.trainer_cli \
-        --dataset_path datasets/karel_dataset --num_k 10 --device cuda
+        --dataset_path datasets/karel_dataset --num_k 10 --device cuda \
+        --model summarizer
 
 Flags follow demo2program_tpu/cli/trainer_cli.py (the shared
 demo2program_tpu.cli.flags parsers), plus `--device {cuda,cpu}` (default

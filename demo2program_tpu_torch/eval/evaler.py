@@ -1,4 +1,4 @@
-"""Evaluation loop (greedy decode), Karel full model.
+"""Evaluation loop (greedy decode), every Karel model family (`--model`).
 
 Port of demo2program_tpu/eval/evaler.py: walks a split in order, without
 shuffling, for a fixed number of full batches and prints the reference's
@@ -22,6 +22,9 @@ Differences from the JAX evaler:
     model forward (expand + model + objective, ending in the copy of the
     results to the host), of VM scoring and of host syntax/canonical work
     (eval/scorer.py).
+
+The induction baseline decodes no program: as in the JAX evaler, nothing is
+scored and the report holds its action scalars only.
 """
 
 import os
@@ -36,8 +39,8 @@ from demo2program_tpu.envs.karel import NUM_STATE_CHANNELS, PERCEPTION_NAMES
 from demo2program_tpu.utils import log
 from demo2program_tpu_torch.eval.scorer import KarelScorer
 from demo2program_tpu_torch.models.common import ModelConfig
-from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
+from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.train import checkpoint as ckpt_io
 from demo2program_tpu_torch.train.step import (
     make_eval_step, resolve_device, to_device)
@@ -89,7 +92,7 @@ class Evaler:
         self.device = resolve_device(device)
         self.cfg = config_from_dataset(args, dataset)
         self.vocab = KarelVocab()
-        model = FullModel(self.cfg)
+        model = get_model_class(self.cfg.model)(self.cfg)
         self.checkpoint = args.checkpoint or ""
         train_dir = getattr(args, "train_dir", "")
         if not self.checkpoint and train_dir:
@@ -105,7 +108,8 @@ class Evaler:
             init_parameters(model, torch.Generator().manual_seed(args.seed))
             self.checkpoint_name = "random_init"
         self.model = model.to(self.device).eval()
-        self.eval_step = make_eval_step(self.model, self.cfg)
+        self.eval_step = make_eval_step(self.model, self.cfg,
+                                        self.cfg.model)
         self.scorer = KarelScorer(self.cfg, self.device, self.vocab)
         self.summary_file = self.checkpoint + \
             "_report_testdata{}_num_k{}.txt".format(
@@ -133,7 +137,7 @@ class Evaler:
             report = {k: float(v) for k, v in report.items()}
             evals = {k: v.cpu().numpy() for k, v in evals.items()}
             timings["forward"].append(time.perf_counter() - t0)
-            scores = self.scorer.score_batch(batch, evals)
+            scores = self.scorer.score_batch(batch, evals) if evals else {}
             step_time = time.perf_counter() - t0
             timings["batch"].append(step_time)
             for k in ("vm", "host"):
@@ -172,6 +176,10 @@ class Evaler:
     def _assemble(self, report, evals, scores):
         loss_d = {k: float(v) for k, v in report.items()
                   if k.endswith("loss")}
+        if not evals:  # induction: action scalars only
+            acc_d = {k: float(v) for k, v in report.items()
+                     if k.endswith("acc")}
+            return loss_d, acc_d, {}
         acc_d = {
             "program_token_acc": float(report["program_token_acc"]),
             "program_seq_acc": float(report["program_seq_acc"]),

@@ -1,4 +1,5 @@
-"""Shared model plumbing: the config and the two-pass demo encoder.
+"""Shared model plumbing: the config, the one- and two-pass demo encoders
+and the baselines' aggregation.
 
 Port of demo2program_tpu/models/common.py. `ModelConfig` keeps every field
 and default of the JAX dataclass, so a config moves between the packages
@@ -68,6 +69,19 @@ class ModelConfig:
                 f"functional for model={self.model!r} (allowed: {allowed})")
 
 
+def check_ported(cfg):
+    """Raise NotImplementedError for what no model family of the port runs
+    yet: ViZDoom, bf16 model compute and scheduled sampling."""
+    if cfg.dataset_type != "karel":
+        raise NotImplementedError(
+            f"{cfg.model!r} on {cfg.dataset_type!r} is not ported")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r} is not ported")
+    if cfg.scheduled_sampling:
+        raise NotImplementedError("scheduled sampling is not ported")
+
+
 def fold_k(x):
     """(bs, k, ...) -> (bs*k, ...)."""
     return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
@@ -77,20 +91,38 @@ def unfold_k(x, bs, k):
     return x.reshape((bs, k) + tuple(x.shape[1:]))
 
 
-class TwoPassDemoEncoder(nn.Module):
-    """Full-model encoder (`model_full.py:367-404`): a first pass per demo,
-    the mean of the final states across demos, then a second LSTM pass over
-    the first-pass histories started from that summary; rn summaries of the
-    final states."""
+class SinglePassDemoEncoder(nn.Module):
+    """Synthesis-baseline encoder (`model_synthesis.py:322-336`): one
+    CNN+LSTM pass over each of the k demos -> (feature histories, final h,
+    final c), each (bs, k, ...)."""
 
     def __init__(self, cfg):
+        super().__init__()
+        self.demo_encoder = DemoEncoder(cfg.num_lstm_cell_units, cfg.h,
+                                        cfg.w, cfg.depth, cfg.cell_impl)
+
+    def forward(self, s_h, demo_len):
+        bs, k = s_h.shape[0], s_h.shape[1]
+        hist, h, c = self.demo_encoder(fold_k(s_h), fold_k(demo_len))
+        return (unfold_k(hist, bs, k), unfold_k(h, bs, k),
+                unfold_k(c, bs, k))
+
+
+class TwoPassDemoEncoder(nn.Module):
+    """Full-model and summarizer encoder (`model_full.py:367-404`): a first
+    pass per demo, the mean of the final states across demos, then a second
+    LSTM pass over the first-pass histories started from that summary;
+    summaries of the final states by `rn_aggregation` ('rn' for the full
+    model, 'rn_pure' for the summarizer)."""
+
+    def __init__(self, cfg, rn_aggregation):
         super().__init__()
         units = cfg.num_lstm_cell_units
         self.demo_encoder = DemoEncoder(units, cfg.h, cfg.w, cfg.depth,
                                         cfg.cell_impl)
         self.second_path = SecondPathEncoder(units, cfg.cell_impl)
-        self.demo_h_summary = SummarizeFeature(units)
-        self.demo_c_summary = SummarizeFeature(units)
+        self.demo_h_summary = SummarizeFeature(units, rn_aggregation)
+        self.demo_c_summary = SummarizeFeature(units, rn_aggregation)
 
     def forward(self, s_h, demo_len):
         """s_h (bs, k, T, h, w, depth), demo_len (bs, k) int."""
@@ -113,3 +145,35 @@ class TwoPassDemoEncoder(nn.Module):
             "demo_h_summary": self.demo_h_summary(demo_h),
             "demo_c_summary": self.demo_c_summary(demo_c),
         }
+
+
+class BaselineAggregation(nn.Module):
+    """`aggregate_baseline` (`model_synthesis.py:336-358`): the k demos'
+    final (h, c) -> one (h, c), by 'avgpool' or 'maxpool' over k, or by
+    'concat' of the k states projected back to `units` by two Dense layers
+    (the reference's bare concat cannot start a units-wide decoder).
+
+    The synthesis and induction models derive from this class, so the two
+    projections sit at the model's root, where flax puts them: the JAX
+    function creates them inside the model's compact __call__."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.aggregation = cfg.demo_aggregation
+        units = cfg.num_lstm_cell_units
+        if self.aggregation == "concat":
+            self.concat_proj_h = nn.Linear(cfg.k * units, units)
+            self.concat_proj_c = nn.Linear(cfg.k * units, units)
+        elif self.aggregation not in ("avgpool", "maxpool"):
+            raise ValueError(
+                f"unknown demo aggregation {self.aggregation!r}")
+
+    def aggregate(self, demo_h, demo_c):
+        """demo_h, demo_c (bs, k, units) -> (h, c), each (bs, units)."""
+        if self.aggregation == "avgpool":
+            return demo_h.mean(dim=1), demo_c.mean(dim=1)
+        if self.aggregation == "maxpool":
+            return demo_h.amax(dim=1), demo_c.amax(dim=1)
+        bs = demo_h.shape[0]
+        return (self.concat_proj_h(demo_h.reshape(bs, -1)),
+                self.concat_proj_c(demo_c.reshape(bs, -1)))

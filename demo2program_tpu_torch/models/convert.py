@@ -6,12 +6,13 @@ auto-named flax nodes and converts leaves by the kind of node that holds
 them:
 
   Conv_0         kernel HWIO -> conv.weight OIHW, bias -> conv.bias
-  Dense_0        kernel (in, out) -> dense.weight (out, in), bias
+  Dense layers   any node holding a 2-D kernel (and a bias): Dense_0
+                 (-> dense), output_projection, memory_layer,
+                 attention_layer, concat_proj_h/_c; kernel (in, out) ->
+                 weight (out, in), bias
   BNAct_0/BatchNorm_0
                  scale, bias, batch_stats mean, var -> bn_act.bn.weight,
                  .bias, .running_mean, .running_var
-  output_projection
-                 kernel (in, out) -> output_projection.weight (out, in)
   embedding      copied
   LSTM cells     ("cell", "PallasLSTMCell_0", "OptimizedLSTMCell_0")
                  -> cell.kernel (D+H, 4H), cell.bias (4H,). The fused
@@ -33,6 +34,12 @@ _GATES = ("i", "f", "g", "o")
 
 def _is_cell(name):
     return name == "cell" or name.endswith("LSTMCell_0")
+
+
+def _is_dense(node):
+    """A flax nn.Dense's params: {kernel (in, out)[, bias]}."""
+    return (set(node) in ({"kernel"}, {"kernel", "bias"})
+            and np.ndim(node["kernel"]) == 2)
 
 
 def fold_lstm_cell(tree):
@@ -60,7 +67,7 @@ def _walk(params, stats, prefix, out):
             out[prefix + "conv.weight"] = np.transpose(
                 np.asarray(node["kernel"]), (3, 2, 0, 1))
             out[prefix + "conv.bias"] = np.asarray(node["bias"])
-        elif name in ("Dense_0", "output_projection"):
+        elif _is_dense(node):
             p = prefix + _RENAME.get(name, name) + "."
             out[p + "weight"] = np.asarray(node["kernel"]).T
             if "bias" in node:
@@ -77,8 +84,8 @@ def _walk(params, stats, prefix, out):
 
 
 def flax_to_state_dict(params, batch_stats=None):
-    """Convert a flax FullModel variable tree to a state_dict of CPU
-    tensors for demo2program_tpu_torch.models.full.FullModel."""
+    """Convert the flax variable tree of any model family to a state_dict
+    of CPU tensors for the port's model of the same family."""
     out = {}
     _walk(params, batch_stats or {}, "", out)
     return {k: torch.from_numpy(np.ascontiguousarray(v))

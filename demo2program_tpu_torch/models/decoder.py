@@ -20,6 +20,36 @@ from torch import nn
 from demo2program_tpu_torch.models.ops import FC, make_lstm_cell
 
 
+def embed(table, ids):
+    """ids (...) int -> (..., E) rows of `table` (N, E); ids outside
+    [0, N) embed to zeros, like the JAX package's one_hot(ids, N) @ table."""
+    n = table.shape[0]
+    valid = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)]
+    return rows * valid[..., None].to(rows.dtype)
+
+
+def greedy_unroll(step, carry, start, end_token, max_len):
+    """Greedy decoding for max_len steps: `step(carry, prev ids) -> (carry,
+    logits)`, from the ids `start` (bs,) -> (logits (bs, L, V), tokens (bs,
+    L) int32, lengths (bs,) int32). Every step runs; the length is where the
+    end token first appears + 1, else max_len."""
+    prev = start
+    finished = torch.zeros_like(start, dtype=torch.bool)
+    length = torch.full_like(start, max_len, dtype=torch.int32)
+    all_logits, all_tokens = [], []
+    for t in range(max_len):
+        carry, logits = step(carry, prev)
+        prev = torch.argmax(logits, dim=-1)
+        newly = (prev == end_token) & ~finished
+        length = torch.where(newly, t + 1, length)
+        finished = finished | newly
+        all_logits.append(logits)
+        all_tokens.append(prev)
+    return (torch.stack(all_logits, dim=1),
+            torch.stack(all_tokens, dim=1).int(), length)
+
+
 def scan_cell(cell, carry, xs):
     """Unmasked LSTM over xs (B, T, D) from carry (c, h).
     Returns (carry, outputs (B, T, H))."""
@@ -47,11 +77,7 @@ class _DecoderCore(nn.Module):
         nn.init.uniform_(self.embedding, 0.0, 0.02, generator=generator)
 
     def embed(self, ids):
-        """ids (...) int -> (..., units); ids outside [0, token_dim] embed
-        to zeros, like one_hot(ids, token_dim+1) @ table."""
-        valid = (ids >= 0) & (ids <= self.token_dim)
-        rows = self.embedding[ids.clamp(0, self.token_dim)]
-        return rows * valid[..., None].to(rows.dtype)
+        return embed(self.embedding, ids)
 
     def run_tf(self, init_c, init_h, input_ids):
         """Teacher-forced unroll over known input ids (bs, L)."""
@@ -87,23 +113,10 @@ class TokenDecoder(nn.Module):
         """-> (logits (bs, L, V), tokens (bs, L) int32, lengths (bs,) int32).
         Decoding runs all max_len steps; the length is where the end token
         first appears."""
-        bs = init_c.shape[0]
-        dev = init_c.device
-        state = (init_c, init_h)
-        prev = torch.full((bs,), self.token_dim, dtype=torch.long, device=dev)
-        finished = torch.zeros(bs, dtype=torch.bool, device=dev)
-        length = torch.full((bs,), max_len, dtype=torch.int32, device=dev)
-        all_logits, all_tokens = [], []
-        for t in range(max_len):
-            state, logits = self.core(state, prev)
-            prev = torch.argmax(logits, dim=-1)
-            newly = (prev == self.end_token) & ~finished
-            length = torch.where(newly, t + 1, length)
-            finished = finished | newly
-            all_logits.append(logits)
-            all_tokens.append(prev)
-        return (torch.stack(all_logits, dim=1),
-                torch.stack(all_tokens, dim=1).int(), length)
+        start = torch.full((init_c.shape[0],), self.token_dim,
+                           dtype=torch.long, device=init_c.device)
+        return greedy_unroll(self.core, (init_c, init_h), start,
+                             self.end_token, max_len)
 
 
 class VectorDecoder(nn.Module):

@@ -5,7 +5,8 @@ Port of demo2program_tpu/models/encoder.py (`model_full.py:216-277,
 CNN over (bs*k*T) frames and one LSTM loop over (bs*k) sequences.
 
 dynamic_rnn length semantics kept: outputs past each sequence's length are
-zeros and the final state is the one at the last valid step.
+zeros and the final state is the one at the last valid step. The
+bidirectional encoder of the induction baseline sums its two directions.
 """
 
 import torch
@@ -56,6 +57,30 @@ class LSTMEncoder(nn.Module):
             (c, h), out = _masked_step(self.cell, (c, h), x, v)
             outs.append(out)
         return torch.stack(outs, dim=1), h, c
+
+
+class BiLSTMEncoder(nn.Module):
+    """Bidirectional masked LSTM (`model_induction.py:435-449`): outputs
+    and final states are the SUMS of the two directions. The backward
+    direction reads each sequence reversed within its own length
+    (tf.reverse_sequence); padded steps keep their index."""
+
+    def __init__(self, in_features, units, cell_impl="xla"):
+        super().__init__()
+        self.units = units
+        self.fwd = LSTMEncoder(in_features, units, cell_impl)
+        self.bwd = LSTMEncoder(in_features, units, cell_impl)
+
+    def forward(self, xs, seq_len, init_state=None):
+        fwd_out, fwd_h, fwd_c = self.fwd(xs, seq_len, init_state)
+        t = torch.arange(xs.shape[1], device=xs.device)[None, :]
+        n = seq_len[:, None]
+        rev_idx = torch.where(t < n, n - 1 - t, t)[:, :, None]  # (B, T, 1)
+        xs_rev = torch.gather(xs, 1, rev_idx.expand(-1, -1, xs.shape[2]))
+        bwd_out_rev, bwd_h, bwd_c = self.bwd(xs_rev, seq_len, init_state)
+        bwd_out = torch.gather(bwd_out_rev, 1,
+                               rev_idx.expand(-1, -1, self.units))
+        return fwd_out + bwd_out, fwd_h + bwd_h, fwd_c + bwd_c
 
 
 def _masked_step(cell, carry, x, v):
@@ -117,13 +142,23 @@ class RNPool(nn.Module):
 
 
 class SummarizeFeature(nn.Module):
-    """Cross-demo aggregation of the full model (`model_full.py:351-362`,
-    the JAX module's 'rn'): mean over k + rn_pool. The 'avgpool' and
-    'rn_pure' variants belong to the baselines, not ported yet."""
+    """Cross-demo aggregation (`model_full.py:351-362`):
+      'avgpool'  mean over k
+      'rn'       mean + rn_pool (the full model)
+      'rn_pure'  rn_pool only (the summarizer, `model_summarizer.py:345-355`)
+    """
 
-    def __init__(self, units):
+    def __init__(self, units, aggregation="avgpool"):
         super().__init__()
-        self.rn_pool = RNPool(units)
+        if aggregation not in ("avgpool", "rn", "rn_pure"):
+            raise ValueError(f"unknown aggregation {aggregation!r}")
+        self.aggregation = aggregation
+        if aggregation != "avgpool":
+            self.rn_pool = RNPool(units)
 
     def forward(self, features):  # (bs, k, v)
-        return features.mean(dim=1) + self.rn_pool(features)
+        if self.aggregation == "rn_pure":
+            return self.rn_pool(features)
+        mean = features.mean(dim=1)
+        return mean if self.aggregation == "avgpool" else (
+            mean + self.rn_pool(features))

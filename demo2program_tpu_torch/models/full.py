@@ -6,8 +6,8 @@ perception decoders with weights shared across the k demos (k folded into
 the batch). Program decoding is greedy (the greedy branch of
 demo2program_tpu/models/synthesis.py:_decode_program); the train step skips
 both greedy decoders (`include_greedy=False`). Train or eval mode is torch's
-`train()` / `eval()`, the flax `train` field. Scheduled sampling is not
-ported.
+`train()` / `eval()`, the flax `train` field. Scheduled sampling, bf16
+compute and the other decode modes are not ported.
 
 The "greedy" perception head is teacher-forced (`model_full.py:409`), so
 the same tensor is exposed under both names.
@@ -16,24 +16,18 @@ the same tensor is exposed under both names.
 from torch import nn
 
 from demo2program_tpu_torch.models.common import (
-    TwoPassDemoEncoder, fold_k, unfold_k)
+    TwoPassDemoEncoder, check_ported, fold_k, unfold_k)
 from demo2program_tpu_torch.models.decoder import TokenDecoder, VectorDecoder
+from demo2program_tpu_torch.models.synthesis import decode_program
 
 
 class FullModel(nn.Module):
     def __init__(self, cfg):
         super().__init__()
-        if cfg.model != "full" or cfg.dataset_type != "karel":
-            raise NotImplementedError(
-                f"{cfg.model!r} on {cfg.dataset_type!r} is not ported")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r} is not ported")
-        if cfg.scheduled_sampling:
-            raise NotImplementedError("scheduled sampling is not ported")
+        check_ported(cfg)
         self.cfg = cfg
         units = cfg.num_lstm_cell_units
-        self.encoder = TwoPassDemoEncoder(cfg)
+        self.encoder = TwoPassDemoEncoder(cfg, "rn")
         self.program_decoder = TokenDecoder(
             cfg.dim_program_token, units, cfg.program_end_token,
             cfg.cell_impl)
@@ -42,7 +36,7 @@ class FullModel(nn.Module):
             cfg.action_space, units, cfg.action_space - 1, cfg.cell_impl)
         self.per_decoder = VectorDecoder(cfg.per_dim, units, cfg.cell_impl)
 
-    def forward(self, batch, include_greedy=True):
+    def forward(self, batch, include_greedy=True, decode_mode="greedy"):
         """batch: the expanded batch (ops/reconstruct.py:expand_batch)."""
         cfg = self.cfg
         bs = batch["s_h"].shape[0]
@@ -66,12 +60,9 @@ class FullModel(nn.Module):
         if not include_greedy:
             return out
 
-        g_logits, g_tokens, g_len = self.program_decoder.greedy(
-            enc["demo_c_summary"], enc["demo_h_summary"],
-            cfg.max_program_len)
-        out.update(greedy_program_logits=g_logits,
-                   greedy_program_tokens=g_tokens,
-                   greedy_program_len=g_len)
+        out.update(decode_program(
+            self.program_decoder, enc["demo_c_summary"],
+            enc["demo_h_summary"], cfg, decode_mode))
         ga_logits, ga_tokens, ga_len = self.action_decoder.greedy(
             a_c, a_h, cfg.max_demo_len)
         out.update(greedy_action_logits=unfold_k(ga_logits, bs, k),

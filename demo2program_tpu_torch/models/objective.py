@@ -2,7 +2,11 @@
 
 Port of demo2program_tpu/models/objective.py (`model_full.py:918-1095`):
 
-  loss = program_CE + mean_k(action_CE_k) + mean_k(per_CE_k)
+  full:                 program_CE + mean_k(action_CE_k) + mean_k(per_CE_k)
+  synthesis_baseline,
+  summarizer:           program_CE
+  induction_baseline:   mean over the test demos of their action CE
+                        (`model_induction.py:788-819`)
 
 each per-demo term normalised by its own mask sum before the mean over k.
 Host-side metrics (syntax, canonical program, execution accuracy) live in
@@ -28,37 +32,59 @@ def _per_k_stats(logits, gt_onehot, gt_len, seq_type, pred_len=None):
                             seq_type)
 
 
-def compute_loss(cfg, outputs, batch):
-    """Full-model objective -> (loss, report) with the reference's
-    report_loss/report_accuracy scalar names (`model_full.py:1099-1132`).
-    The baselines' program-only and induction objectives are not ported."""
+def _all_k_match(stats):
+    """`seq_all_acc`: the share of tasks whose sequences ALL match
+    (`model_induction.py:816-819`); stats have a leading k axis."""
+    return (stats["is_same_seq"] > 0.5).all(dim=0).float().mean()
+
+
+def compute_loss(cfg, outputs, batch, model_name):
+    """Training objective of `model_name` -> (loss, report) with the
+    reference's report_loss/report_accuracy scalar names
+    (`model_full.py:1099-1132`)."""
     report = {}
+    if model_name == "induction_baseline":
+        act = _per_k_stats(outputs["pred_action_logits"], batch["test_a_h"],
+                           batch["test_demo_len"].long(), "action")
+        loss = act["loss"].mean()
+        report["avg_action_loss"] = loss
+        report["avg_action_token_acc"] = act["token_acc"].mean()
+        report["avg_action_seq_acc"] = act["seq_acc"].mean()
+        report["avg_action_seq_all_acc"] = _all_k_match(act)
+        report["loss"] = loss
+        return loss, report
+
     prog = _program_stat(outputs["pred_program_logits"], batch)
+    loss = prog["loss"]
     report["program_loss"] = prog["loss"]
     report["program_token_acc"] = prog["token_acc"]
     report["program_seq_acc"] = prog["seq_acc"]
 
-    demo_len = batch["demo_len"].long()  # action_len alias
-    act = _per_k_stats(outputs["pred_action_logits"], batch["a_h"],
-                       demo_len, "action")
-    report["avg_action_loss"] = act["loss"].mean()
-    report["avg_action_token_acc"] = act["token_acc"].mean()
-    report["avg_action_seq_acc"] = act["seq_acc"].mean()
+    if model_name == "full":
+        demo_len = batch["demo_len"].long()  # action_len alias
+        act = _per_k_stats(outputs["pred_action_logits"], batch["a_h"],
+                           demo_len, "action")
+        report["avg_action_loss"] = act["loss"].mean()
+        report["avg_action_token_acc"] = act["token_acc"].mean()
+        report["avg_action_seq_acc"] = act["seq_acc"].mean()
 
-    per = _per_k_stats(outputs["pred_per_logits"], batch["per"], demo_len,
-                       "per")
-    report["avg_per_loss"] = per["loss"].mean()
+        per = _per_k_stats(outputs["pred_per_logits"], batch["per"],
+                           demo_len, "per")
+        report["avg_per_loss"] = per["loss"].mean()
+        loss = loss + report["avg_action_loss"] + report["avg_per_loss"]
 
-    loss = prog["loss"] + report["avg_action_loss"] + report["avg_per_loss"]
     report["loss"] = loss
     return loss, report
 
 
 def program_eval_tensors(cfg, outputs, batch):
     """Per-example tensors for the host/VM scorers, for the teacher-forced
-    and the greedy programs (the fetch set of `evaler.py:258-280`). The
-    JAX function's pred_per / pred_action_probs feed the trainer's image
+    and the greedy programs (the fetch set of `evaler.py:258-280`); empty
+    for the induction baseline, which decodes no program. The JAX
+    function's pred_per / pred_action_probs feed the trainer's image
     summaries, which are not ported."""
+    if "pred_program_logits" not in outputs:
+        return {}
     prog = _program_stat(outputs["pred_program_logits"], batch)
     plen = batch["program_len"][:, 0].long()
     res = {
@@ -83,13 +109,24 @@ def program_eval_tensors(cfg, outputs, batch):
     return res
 
 
-def greedy_action_report(cfg, outputs, batch):
-    """greedy_avg_action_* scalars (`model_full.py:1040-1059`)."""
-    stats = _per_k_stats(outputs["greedy_action_logits"], batch["a_h"],
-                         batch["demo_len"].long(), "action",
+def greedy_action_report(cfg, outputs, batch, model_name):
+    """greedy_avg_action_* scalars (`model_full.py:1040-1059`); the
+    induction baseline is scored against the TEST demos and adds
+    seq_all_acc (`model_induction.py:822-846`). Empty for the models
+    without an action decoder."""
+    if "greedy_action_logits" not in outputs:
+        return {}
+    induction = model_name == "induction_baseline"
+    gt, lens = ((batch["test_a_h"], batch["test_demo_len"]) if induction
+                else (batch["a_h"], batch["demo_len"]))
+    stats = _per_k_stats(outputs["greedy_action_logits"], gt, lens.long(),
+                         "action",
                          pred_len=outputs["greedy_action_len"].long())
-    return {
+    report = {
         "greedy_avg_action_loss": stats["loss"].mean(),
         "greedy_avg_action_token_acc": stats["token_acc"].mean(),
         "greedy_avg_action_seq_acc": stats["seq_acc"].mean(),
     }
+    if induction:
+        report["greedy_avg_action_seq_all_acc"] = _all_k_match(stats)
+    return report

@@ -135,7 +135,8 @@ def init_parameters(model, generator):
     """Re-draw every parameter of `model` from `generator` with the flax
     initializers, in module order; BN running stats reset to (0, 1).
     Modules of this package that own raw parameters (the LSTM cell, the
-    decoder embedding) draw them in `reset_parameters(generator)`."""
+    token decoders' embedding, the induction decoder's `manipulation`
+    embedding) draw them in `reset_parameters(generator)`."""
     for module in model.modules():
         if isinstance(module, (nn.Linear, nn.Conv2d)):
             # weight[0] spans the fan-in: (in,) or (in, kh, kw)

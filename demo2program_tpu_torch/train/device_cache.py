@@ -24,12 +24,14 @@ from demo2program_tpu_torch.train.step import to_device
 class KarelDeviceCache:
     """The compact split of `dataset` (anything with `ids` and
     `get_batch_compact(ids)`: an HDF5 KarelDataset or an
-    InMemoryKarelSplit) on `device`, without the unseen-demo `test_*`
-    arrays, which the full model's train step does not read."""
+    InMemoryKarelSplit) on `device`. The unseen-demo `test_*` arrays are
+    kept only with `include_test`: the induction baseline trains on the
+    test demos' actions, the other models do not read them."""
 
-    def __init__(self, dataset, device, batch_size, seed):
+    def __init__(self, dataset, device, batch_size, seed, include_test=False):
         host = dataset.get_batch_compact(list(dataset.ids))
-        host = {k: v for k, v in host.items() if not k.startswith("test_")}
+        host = {k: v for k, v in host.items()
+                if include_test or not k.startswith("test_")}
         self.n = len(dataset.ids)
         self.steps_per_epoch = self.n // batch_size
         if self.steps_per_epoch < 1:

@@ -4,7 +4,8 @@ Port of demo2program_tpu/train/step.py: Adam (optax `adam`: b1 0.9, b2
 0.999, eps 1e-8 outside the square root) after clipping by global norm 20
 (optax `clip_by_global_norm`), an optional staircase decay of the learning
 rate (x0.5 every 10k updates, `--lr_weight_decay`), and the eval step with
-greedy decode. Scheduled sampling and bf16 compute are not ported.
+greedy decode, for every model family (the objective by model name).
+Scheduled sampling and bf16 compute are not ported.
 
 The train step runs eagerly: forward in train mode (BatchNorm on batch
 statistics, no greedy decoders), the full objective, backward (every LSTM
@@ -106,22 +107,22 @@ class TrainState:
         self.optimizer.load_state_dict(state["optimizer"])
 
 
-def forward_loss(model, cfg, batch):
+def forward_loss(model, cfg, batch, model_name):
     """Train-mode forward of a compact or expanded batch (dict of tensors on
-    the model's device) -> (loss, report)."""
+    the model's device) -> (loss, report) of `model_name`'s objective."""
     model.train()
     batch = expand_batch(strip_non_tensor(batch), cfg)
     out = model(batch, include_greedy=False)
-    return objective.compute_loss(cfg, out, batch)
+    return objective.compute_loss(cfg, out, batch, model_name)
 
 
-def make_train_step(state, cfg):
+def make_train_step(state, cfg, model_name):
     """-> train_step(batch) -> report: one update of `state`. The report
     has the objective's scalars and `grad_norm`, the global norm of the
     unclipped gradients (demo2program_tpu/train/step.py:129)."""
 
     def train_step(batch):
-        loss, report = forward_loss(state.model, cfg, batch)
+        loss, report = forward_loss(state.model, cfg, batch, model_name)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         report["grad_norm"] = state.apply_gradients()
@@ -130,18 +131,20 @@ def make_train_step(state, cfg):
     return train_step
 
 
-def make_eval_step(model, cfg):
-    """Eval forward: loss/acc reports + program tensors for host/VM scoring,
-    with running batch-norm statistics. Returns eval_step(batch) ->
-    (report, evals), batch being a dict of tensors on the model's device."""
+def make_eval_step(model, cfg, model_name):
+    """Eval forward: loss/acc reports + program tensors for host/VM scoring
+    (none for the induction baseline), with running batch-norm statistics.
+    Returns eval_step(batch) -> (report, evals), batch being a dict of
+    tensors on the model's device."""
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
         batch = expand_batch(strip_non_tensor(batch), cfg)
         out = model(batch)
-        _, report = objective.compute_loss(cfg, out, batch)
-        report.update(objective.greedy_action_report(cfg, out, batch))
+        _, report = objective.compute_loss(cfg, out, batch, model_name)
+        report.update(objective.greedy_action_report(cfg, out, batch,
+                                                     model_name))
         evals = objective.program_eval_tensors(cfg, out, batch)
         return report, evals
 

@@ -1,4 +1,4 @@
-"""The trainer, Karel full model.
+"""The trainer, every Karel model family (`--model`).
 
 Port of demo2program_tpu/train/trainer.py with its device-cache loop
 (`_train_chunked`, :509-575): the compact train split lives on the device
@@ -25,8 +25,10 @@ Differences from the JAX trainer: the model is drawn with
 models/ops.py:init_parameters from `--seed` (same initializers, other
 numbers); the batch order follows the same rule with numpy's generator, not
 jax.random (train/device_cache.py); checkpoints are torch files
-(train/checkpoint.py). Not ported: the streaming BatchPipeline path,
-ViZDoom, the baselines, scheduled sampling, bf16 compute,
+(train/checkpoint.py). The induction baseline trains on the test demos'
+actions, so its device cache keeps the `test_*` arrays, and its test-sample
+evals write no program samples, as in the JAX trainer. Not ported: the
+streaming BatchPipeline path, ViZDoom, scheduled sampling, bf16 compute,
 `--sample_images` and `--profile_steps`.
 """
 
@@ -40,8 +42,8 @@ import torch
 from demo2program_tpu.dsl.karel_vocab import KarelVocab
 from demo2program_tpu.utils import log
 from demo2program_tpu_torch.eval.evaler import config_from_dataset
-from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
+from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
 from demo2program_tpu_torch.train.step import (
@@ -72,15 +74,16 @@ class Trainer:
         os.makedirs(self.train_dir, exist_ok=True)
         log.infov("Train Dir: %s", self.train_dir)
 
-        model = FullModel(cfg)
+        model = get_model_class(args.model)(cfg)
         init_parameters(model, torch.Generator().manual_seed(args.seed))
         self.model = model.to(self.device)
         self.state = TrainState(self.model, args.learning_rate,
                                 args.lr_weight_decay)
-        self.train_step = make_train_step(self.state, cfg)
-        self.eval_step = make_eval_step(self.model, cfg)
-        self.cache = KarelDeviceCache(dataset_train, self.device,
-                                      args.batch_size, args.seed)
+        self.train_step = make_train_step(self.state, cfg, args.model)
+        self.eval_step = make_eval_step(self.model, cfg, args.model)
+        self.cache = KarelDeviceCache(
+            dataset_train, self.device, args.batch_size, args.seed,
+            include_test=args.model == "induction_baseline")
         self.test_stream = _InfiniteEval(dataset_test, args.batch_size,
                                          args.seed)
 
@@ -149,7 +152,10 @@ class Trainer:
     def _write_samples(self, step, batch, evals, n=3):
         """Decoded (gt, pred, greedy) program triplets of a test-sample
         step, appended to samples.txt; one echoed to the log
-        (demo2program_tpu/train/trainer.py:324-352)."""
+        (demo2program_tpu/train/trainer.py:324-352). Nothing for a model
+        without programs (`evals` empty: the induction baseline)."""
+        if not evals:
+            return
         gt_tokens = batch["program_tokens"]
         gt_len = batch["program_len"][:, 0].astype(int)
         lines = [f"# step {step}"]

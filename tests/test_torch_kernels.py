@@ -25,6 +25,10 @@ BATCHES = (1, 20, 32, 33, 64, 200, 320)
 # (D, H): the encoder's first pass, the 512-wide layers, and shapes whose
 # rows are not 16-byte aligned (13, 100) or narrower than one block (64)
 WIDTHS = ((48, 512), (512, 512), (13, 100), (48, 64))
+# (B, D) at H = 512 that only the induction baseline runs: its demo
+# encoder's input (48 CNN features + 5 percepts) at B = bs * k, and its
+# attention decoder's [embedding, attention] at B = bs * test_k
+BASELINE_SHAPES = [(320, 53), (160, 1024)]
 
 
 @pytest.fixture
@@ -104,7 +108,8 @@ def test_kernel_takes_unaligned_tensors(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,D", [(32, 512), (320, 48), (320, 512)])
+@pytest.mark.parametrize("B,D", [(32, 512), (320, 48), (320, 512)]
+                         + BASELINE_SHAPES)
 def test_scan_matches_plain(cuda, B, D, dtype):
     """20 steps, each fed the kernel's own (h, c), against the plain version
     fed its own. Weights are glorot-uniform as in the model, so the cell
@@ -156,6 +161,32 @@ def test_launch_plan_fills_the_card(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D,blocks,vec", [(320, 53, 320, 0),
+                                            (160, 1024, 192, 1)])
+def test_baseline_shapes_match_plain(cuda, B, D, blocks, vec, dtype):
+    """The induction baseline's shapes at H = 512, one step: its demo
+    encoder (D = 53 is no multiple of a 16-byte chunk, so the edge
+    instance with plain loads runs) and its attention decoder (K = D + H =
+    1536, a wide grid of 32 x 3 x 2 blocks at B = 160)."""
+    H = 512
+    r = np.random.RandomState(B + D)
+    limit = math.sqrt(6.0 / (D + H + 4 * H))
+    args = _on_card([r.randn(B, D).astype(np.float32),
+                     r.randn(B, H).astype(np.float32),
+                     r.randn(B, H).astype(np.float32),
+                     r.uniform(-limit, limit, (D + H, 4 * H)).astype(
+                         np.float32),
+                     (0.1 * r.randn(4 * H)).astype(np.float32)], dtype)
+    before = fused_lstm_step.launches
+    out = fused_lstm_step(*args)
+    plan = last_plan()
+    assert fused_lstm_step.launches == before + 1
+    assert (plan["cluster"], plan["blocks"], plan["vec"]) == (2, blocks, vec)
+    _assert_close(out, lstm_step_ref(*args), dtype)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x, h, c, w, b = _on_card(_inputs(32, 48, 64, seed=0), "float32")
     with pytest.raises(ValueError, match="contiguous"):
@@ -185,12 +216,14 @@ def _grads_via(step, inputs, n_steps, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_steps", [1, 20])
-@pytest.mark.parametrize("B,D", [(32, 48), (320, 48), (32, 512), (320, 512)])
+@pytest.mark.parametrize("B,D", [(32, 48), (320, 48), (32, 512), (320, 512)]
+                         + BASELINE_SHAPES)
 def test_autograd_matches_plain(cuda, B, D, n_steps):
     """FusedLSTMStep on the card (the kernel forward, one launch a step,
     and the backward recomputing the plain version from the saved inputs)
     against plain autograd through lstm_step_ref, f32, at the four eval
-    shapes, for one step and a 20-step scan. Grads of x, h, c, W and b
+    shapes and the induction baseline's two, for one step and a 20-step
+    scan. Grads of x, h, c, W and b
     within 1e-4 + 1e-4 * |ref|: the kernel's forward differs from the plain
     one by ~1e-6, and the backward is the same plain computation."""
     H = 512
@@ -219,10 +252,11 @@ def _tf32(a):
     return ((a.view(torch.int32) + 0x1000) & ~0x1fff).view(torch.float32)
 
 
-@pytest.mark.parametrize("B,D", [(32, 48), (320, 48), (32, 512), (320, 512)])
+@pytest.mark.parametrize("B,D", [(32, 48), (320, 48), (32, 512), (320, 512)]
+                         + BASELINE_SHAPES)
 def test_f32_tolerance_rejects_single_pass_tf32(B, D):
     """The f32 tolerance tells the 3xTF32 split from one TF32 pass at every
-    eval shape, with glorot weights and N(0, 1) activations as in
+    model shape, with glorot weights and N(0, 1) activations as in
     chip_smoke.py: z = [x, h] @ W from TF32-rounded operands (products and
     sums exact in f64) breaks it; the split's three products keep it."""
     H = 512

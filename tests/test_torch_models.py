@@ -25,10 +25,14 @@ from demo2program_tpu.models.common import (
 from demo2program_tpu.models.decoder import (
     TokenDecoder as JaxTokenDecoder, VectorDecoder as JaxVectorDecoder)
 from demo2program_tpu.models.full import FullModel as JaxFullModel
+from demo2program_tpu.models.registry import (
+    get_model_class as jax_model_class)
 from demo2program_tpu_torch.models.common import ModelConfig
 from demo2program_tpu_torch.models.convert import flax_to_state_dict
 from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import same_padding
+from demo2program_tpu_torch.models.registry import get_model_class
+from demo2program_tpu_torch.ops import fused_lstm
 
 ATOL = 1e-4
 GAP = 1e-4
@@ -99,6 +103,94 @@ def _require_gap(logits, what):
                     f"argmax tie; greedy ids are not comparable")
 
 
+def assert_outputs_match(out_t, out_j, atol=ATOL):
+    """The port's model outputs vs the JAX module's: the same keys, float
+    outputs at `atol`, token ids and lengths exact (after the argmax-tie
+    guard on every greedy head)."""
+    assert set(out_t) == set(out_j)
+    for key in out_j:
+        if key.startswith("greedy_") and key.endswith("_logits"):
+            _require_gap(out_j[key], key)
+    for key in out_j:
+        got, want = out_t[key].detach().numpy(), np.asarray(out_j[key])
+        assert got.shape == want.shape, key
+        if "tokens" in key or key.endswith("_len"):
+            np.testing.assert_array_equal(got, want, err_msg=key)
+        else:
+            np.testing.assert_allclose(got, want, atol=atol, rtol=0,
+                                       err_msg=key)
+
+
+def family_batch(cfg, seed=0):
+    """`_batch` plus ragged unseen demos with their action rows, which the
+    induction baseline decodes."""
+    batch = _batch(cfg, seed)
+    r = np.random.RandomState(seed + 200)
+    tok = r.randint(0, cfg.action_space, (BS, cfg.test_k, cfg.max_demo_len))
+    batch["test_a_h"] = np.eye(cfg.action_space, dtype=np.float32)[tok]
+    batch["test_a_h_tokens"] = tok.astype(np.int32)
+    batch["test_demo_len"] = r.randint(
+        2, cfg.max_demo_len + 1, (BS, cfg.test_k)).astype(np.float32)
+    return batch
+
+
+def family_forward_parity(model_name, train, atol=ATOL, **overrides):
+    """One forward of `model_name` (tiny config with `overrides`) through
+    the JAX module and the port, from random flax variables loaded with
+    load_state_dict(strict=True): every output compared; in train mode
+    (no greedy decoders, BatchNorm on batch statistics) the updated running
+    statistics too, at atol 1e-5. -> the port's model."""
+    cfg = dataclasses.replace(_tiny_cfg(), model=model_name, **overrides)
+    batch = family_batch(cfg)
+    jax_model = jax_model_class(model_name)(cfg, train=train)
+    # seed 2: no greedy argmax of any family and variant tested falls
+    # within GAP of a tie (seed 1 has three that do)
+    variables = _random_variables(jax_model, batch, seed=2)
+    stats = variables.get("batch_stats", {})
+    model = get_model_class(model_name)(_torch_cfg(cfg))
+    model.load_state_dict(flax_to_state_dict(variables["params"], stats),
+                          strict=True)
+    if not train:
+        out_j = jax.jit(jax_model.apply)(variables, batch)
+        with torch.no_grad():
+            out_t = model.eval()(_tensors(batch))
+        assert_outputs_match(out_t, jax.device_get(out_j), atol)
+        return model
+    out_j, upd = jax.jit(lambda v, b: jax_model.apply(
+        v, b, include_greedy=False, mutable=["batch_stats"]))(
+            variables, batch)
+    with torch.no_grad():
+        out_t = model.train()(_tensors(batch), include_greedy=False)
+    assert_outputs_match(out_t, jax.device_get(out_j), atol)
+    want = flax_to_state_dict(variables["params"],
+                              jax.device_get(upd["batch_stats"]))
+    got = model.state_dict()
+    running = [k for k in want if "running_" in k]
+    assert running
+    for k in running:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)
+    return model
+
+
+def count_lstm_steps(monkeypatch, model, batch, include_greedy):
+    """LSTM steps one forward of `model` takes (train mode without greedy
+    decoders, eval mode with them): every step goes through
+    fused_lstm.fused_lstm_step, the call the kernel's launch count sits
+    in on the card."""
+    calls = []
+
+    def counted(*a):
+        calls.append(1)
+        return fused_lstm.lstm_step_ref(*a)
+
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(fused_lstm, "fused_lstm_step", counted)
+        model.train(not include_greedy)
+        model(_tensors(batch), include_greedy=include_greedy)
+    return len(calls)
+
+
 def test_same_padding_is_flax_same():
     """flax 'SAME' at stride 2 pads (0, 1) on every Karel layer, which
     torch's padding=1 would not."""
@@ -109,17 +201,7 @@ def test_full_model_matches_jax(pair):
     cfg, batch, _, out_j, model = pair
     with torch.no_grad():
         out_t = model(_tensors(batch))
-    assert set(out_t) == set(out_j)
-    _require_gap(out_j["greedy_program_logits"], "greedy program")
-    _require_gap(out_j["greedy_action_logits"], "greedy actions")
-    for key in out_j:
-        got, want = out_t[key].numpy(), np.asarray(out_j[key])
-        assert got.shape == want.shape, key
-        if "tokens" in key or key.endswith("_len"):
-            np.testing.assert_array_equal(got, want, err_msg=key)
-        else:
-            np.testing.assert_allclose(got, want, atol=ATOL, rtol=0,
-                                       err_msg=key)
+    assert_outputs_match(out_t, out_j)
 
 
 def test_encoder_matches_jax(pair):

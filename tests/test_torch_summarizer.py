@@ -1,0 +1,112 @@
+"""Summarizer baseline of the PyTorch port vs the JAX module, on the CPU.
+
+Built like tests/test_torch_models.py and tests/test_torch_train.py: the
+tiny config of __graft_entry__._tiny_cfg (k=3, test_k=2, T=6, L=12), flax
+variables drawn with numpy and loaded with models/convert.py and
+load_state_dict(strict=True), the same numpy batch on both sides. Outputs
+at atol 1e-4, greedy ids and lengths exact; the train step against the
+jitted JAX `make_step_fn` over 1 and 3 steps; a drive of both CLIs.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from __graft_entry__ import _tiny_cfg
+from demo2program_tpu_torch.data.karel_memory import generate_split
+from demo2program_tpu_torch.models.common import ModelConfig
+from demo2program_tpu_torch.models.summarizer import SummarizerModel
+from tests.test_torch_models import (
+    _tensors, count_lstm_steps, family_batch, family_forward_parity)
+from tests.test_torch_train import (
+    N_STEPS, SPLIT, check_params_and_bn_statistics,
+    check_reports_and_gradients, run_train_parity)
+from tests.test_torch_trainer import drive_clis, log_records  # noqa: F401
+
+MODEL = "summarizer"
+
+
+def _cfg(**overrides):
+    return ModelConfig(**dataclasses.asdict(
+        dataclasses.replace(_tiny_cfg(), model=MODEL, **overrides)))
+
+
+@pytest.mark.parametrize("cell_impl", ["pallas_jnp", "xla"])
+def test_eval_forward_matches_jax(cell_impl):
+    family_forward_parity(MODEL, train=False, cell_impl=cell_impl)
+
+
+@pytest.mark.parametrize("cell_impl", ["pallas_jnp", "xla"])
+def test_train_forward_matches_jax(cell_impl):
+    family_forward_parity(MODEL, train=True, cell_impl=cell_impl)
+
+
+def test_summary_is_pure_rn_pool():
+    """The summarizer's summaries are rn_pool alone ('rn_pure'): no mean
+    over the demos added, unlike the full model's 'rn'."""
+    model = SummarizerModel(_cfg()).eval()
+    feats = torch.randn(2, 3, 64)
+    for head in (model.encoder.demo_h_summary, model.encoder.demo_c_summary):
+        assert head.aggregation == "rn_pure"
+        with torch.no_grad():
+            torch.testing.assert_close(head(feats), head.rn_pool(feats))
+
+
+def test_lstm_steps_per_forward(monkeypatch):
+    """2T + L steps in a train forward (two encoder passes, teacher-forced
+    program), 2T + 2L in an eval forward (and the greedy program): the
+    counts chip_smoke.py holds the kernel's launches to."""
+    cfg = _cfg()
+    model, batch = SummarizerModel(cfg), family_batch(cfg)
+    T, L = cfg.max_demo_len, cfg.max_program_len
+    assert count_lstm_steps(monkeypatch, model, batch, False) == 2 * T + L
+    assert count_lstm_steps(monkeypatch, model, batch,
+                            True) == 2 * T + 2 * L
+
+
+@pytest.mark.parametrize("what,field,value", [
+    ("scheduled", "scheduled_sampling", True),
+    ("compute_dtype", "compute_dtype", "bfloat16"),
+    ("vizdoom", "dataset_type", "vizdoom")])
+def test_unported_options_raise(what, field, value):
+    with pytest.raises(NotImplementedError, match=what):
+        SummarizerModel(_cfg(**{field: value}))
+
+
+def test_non_greedy_decode_raises():
+    cfg = _cfg()
+    model = SummarizerModel(cfg).eval()
+    batch = _tensors(family_batch(cfg))
+    for mode in ("beam", "syntax_greedy", "syntax_sample"):
+        with pytest.raises(NotImplementedError, match=mode):
+            model(batch, decode_mode=mode)
+
+
+@pytest.fixture(scope="module")
+def split():
+    return generate_split(SPLIT)
+
+
+@pytest.fixture(scope="module", params=["pallas", "xla"])
+def train_runs(request, split):
+    return run_train_parity(split, MODEL, request.param)
+
+
+def test_train_step_reports_and_gradients_match_jax(train_runs):
+    check_reports_and_gradients(train_runs)
+
+
+@pytest.mark.parametrize("n_steps", [1, N_STEPS])
+def test_params_and_bn_statistics_match_jax(train_runs, n_steps):
+    check_params_and_bn_statistics(train_runs, n_steps)
+
+
+def test_clis_train_and_evaluate(split, tmp_path, monkeypatch, log_records):
+    train_dir, report = drive_clis(MODEL, split, tmp_path, monkeypatch,
+                                   log_records)
+    assert {"program_loss", "greedy_program_loss"} <= set(report["Loss"])
+    assert {"greedy_program_syntax_acc", "greedy_exact_program_accuracy",
+            "program_token_acc"} <= set(report["Acc"])
+    assert not any("action" in k for d in report.values() for k in d)
+    assert "greedy: " in open(f"{train_dir}/samples.txt").read()

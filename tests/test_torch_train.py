@@ -23,8 +23,9 @@ import torch
 
 from demo2program_tpu.models import objective as jax_objective
 from demo2program_tpu.models.common import ModelConfig as JaxConfig
-from demo2program_tpu.models.full import FullModel as JaxFullModel
 from demo2program_tpu.models.ops import BNAct as JaxBNAct
+from demo2program_tpu.models.registry import (
+    get_model_class as jax_model_class)
 from demo2program_tpu.ops import pallas_lstm
 from demo2program_tpu.ops.reconstruct import expand_batch as jax_expand
 from demo2program_tpu.train.step import (
@@ -36,6 +37,7 @@ from demo2program_tpu_torch.eval.evaler import config_from_dataset
 from demo2program_tpu_torch.models.convert import flax_to_state_dict
 from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import BNAct
+from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.fused_lstm import fused_lstm_step
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
@@ -196,13 +198,14 @@ def split():
     return generate_split(SPLIT)
 
 
-def _train_batches(split):
-    """The compact batches the device cache serves (no ids, no test_*)."""
+def _train_batches(split, include_test=False):
+    """The compact batches the device cache serves: no ids, and the test_*
+    arrays only with `include_test` (the induction baseline's cache)."""
     out = []
     for s in range(N_STEPS):
         b = split.get_batch_compact(split.ids[s * BS:(s + 1) * BS])
-        out.append({k: v for k, v in b.items()
-                    if k != "id" and not k.startswith("test_")})
+        out.append({k: v for k, v in b.items() if k != "id" and (
+            include_test or not k.startswith("test_"))})
     return out
 
 
@@ -218,22 +221,24 @@ def _random_stats(tree, seed=0):
     return jax.tree_util.tree_map_with_path(draw, tree)
 
 
-@pytest.fixture(scope="module", params=["pallas", "xla"])
-def train_runs(request, split):
+def run_train_parity(split, model_name, cell_impl, overrides=None):
     """N_STEPS steps of the jitted JAX `make_step_fn` and of the port's
-    train step from the same variables (JAX's initializers, random BN
-    running statistics) on the same batches. -> dict with the JAX gradients
-    of step 1 and, per step, both reports, the port's gradients and both
+    train step of `model_name` from the same variables (JAX's initializers,
+    random BN running statistics) on the same batches; `overrides` replace
+    config fields that have no flag. -> dict with the JAX gradients of step
+    1 and, per step, both reports, the port's gradients and both
     state_dicts."""
     args = trainer_cli.parse_args([
-        "--device", "cpu", "--num_k", str(SPLIT.k), "--batch_size", str(BS),
-        "--num_lstm_cell_units", "32", "--cell_impl", request.param,
-        "--learning_rate", str(LR)])
-    cfg = config_from_dataset(args, split)
+        "--device", "cpu", "--model", model_name, "--num_k", str(SPLIT.k),
+        "--batch_size", str(BS), "--num_lstm_cell_units", "32",
+        "--cell_impl", cell_impl, "--learning_rate", str(LR)])
+    cfg = dataclasses.replace(config_from_dataset(args, split),
+                              **(overrides or {}))
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
-    jmodel = JaxFullModel(jcfg, train=True)
+    jmodel = jax_model_class(model_name)(jcfg, train=True)
     tx = make_optimizer(jcfg, LR)
-    batches = _train_batches(split)
+    batches = _train_batches(
+        split, include_test=model_name == "induction_baseline")
     state = jax.jit(lambda b: create_train_state(
         jmodel, jcfg, tx, jax.random.key(0), b))(batches[0])
     state = state.replace(batch_stats=_random_stats(state.batch_stats))
@@ -243,28 +248,31 @@ def train_runs(request, split):
         out, _ = jmodel.apply(
             {"params": params, "batch_stats": state.batch_stats}, b,
             mutable=["batch_stats"], include_greedy=False)
-        return jax_objective.compute_loss(jcfg, out, b, "full")[0]
+        return jax_objective.compute_loss(jcfg, out, b, model_name)[0]
 
     grads_j = flax_to_state_dict(
         jax.device_get(jax.jit(jax.grad(loss_fn))(state.params, batches[0])),
         state.batch_stats)
-    step_j = jax.jit(make_step_fn(jmodel, jcfg, tx, "full"))
+    step_j = jax.jit(make_step_fn(jmodel, jcfg, tx, model_name))
 
-    model = FullModel(cfg)
+    model = get_model_class(model_name)(cfg)
     model.load_state_dict(flax_to_state_dict(state.params,
                                              state.batch_stats))
     train_state = TrainState(model, LR)
-    step_t = make_train_step(train_state, cfg)
+    step_t = make_train_step(train_state, cfg, model_name)
+    resync = PER_EMBED_BIAS in dict(model.named_parameters())
     steps = []
     for batch in batches:
-        # The per_embed Dense bias feeds BatchNorm directly: its gradient is
-        # 0 in exact arithmetic, so Adam moves it by rounding noise, and the
-        # BN's batch mean (hence running_mean) carries it. Each step starts
-        # from the JAX side's value, so the running statistics stay
-        # comparable; the bias itself is held to 2 * lr below.
-        with torch.no_grad():
-            model.get_parameter(PER_EMBED_BIAS).copy_(flax_to_state_dict(
-                state.params, state.batch_stats)[PER_EMBED_BIAS])
+        # The full model's per_embed Dense bias feeds BatchNorm directly:
+        # its gradient is 0 in exact arithmetic, so Adam moves it by
+        # rounding noise, and the BN's batch mean (hence running_mean)
+        # carries it. Each step starts from the JAX side's value, so the
+        # running statistics stay comparable; the bias itself is held to
+        # 2 * lr below.
+        if resync:
+            with torch.no_grad():
+                model.get_parameter(PER_EMBED_BIAS).copy_(flax_to_state_dict(
+                    state.params, state.batch_stats)[PER_EMBED_BIAS])
         state, rep_j = step_j(state, batch, jax.random.key(1))
         rep_t = step_t(to_device(batch, "cpu"))
         steps.append({
@@ -279,14 +287,14 @@ def train_runs(request, split):
             "params": [n for n, _ in model.named_parameters()]}
 
 
-def test_train_step_reports_and_gradients_match_jax(train_runs):
+def check_reports_and_gradients(runs, grad_rtol=1e-4):
     """Every report scalar at atol 1e-4 and grad_norm (the unclipped
     gradients' global norm) at rtol 1e-4, in each step; every parameter's
-    gradient of step 1 within 1e-4 * max|g_leaf| + 1e-7. The per_embed
-    Dense bias has a gradient that is mathematically zero (about 2e-8 of
-    rounding here, against 1e-4 to 1e-2 for its neighbours): it is held to
-    atol 1e-7."""
-    for s in train_runs["steps"]:
+    gradient of step 1 within grad_rtol * max|g_leaf| + 1e-7. The full
+    model's per_embed Dense bias has a gradient that is mathematically zero
+    (about 2e-8 of rounding, against 1e-4 to 1e-2 for its neighbours): it
+    is held to atol 1e-7."""
+    for s in runs["steps"]:
         rep_j, rep_t = s["rep_j"], s["rep_t"]
         assert set(rep_t) == set(rep_j)
         for k in rep_j:
@@ -296,29 +304,28 @@ def test_train_step_reports_and_gradients_match_jax(train_runs):
             else:
                 np.testing.assert_allclose(float(rep_t[k]), float(rep_j[k]),
                                            atol=1e-4, rtol=0, err_msg=k)
-    grads_t = train_runs["steps"][0]["grads_t"]
-    grads_j = train_runs["grads_j"]
+    grads_t = runs["steps"][0]["grads_t"]
+    grads_j = runs["grads_j"]
     assert set(grads_t) <= set(grads_j)
     for name, g in grads_t.items():
         want = grads_j[name]
         err = (g - want).abs().max().item()
         bound = (1e-7 if name == PER_EMBED_BIAS
-                 else 1e-4 * want.abs().max().item() + 1e-7)
+                 else grad_rtol * want.abs().max().item() + 1e-7)
         assert err <= bound, (name, err, bound)
 
 
-@pytest.mark.parametrize("n_steps", [1, N_STEPS])
-def test_params_and_bn_statistics_match_jax(train_runs, n_steps):
-    """After 1 and 3 steps: parameters at atol 1e-5 and BN running
-    statistics at atol 1e-5. Adam moves an element by lr * g / (|g| + 1e-8),
-    so where |g| is within 100 * eps of zero the step turns gradient
-    rounding into a change of up to 2 * lr (the two sides may step either
-    way); such elements (|g| < 1e-6 in any step so far, the per_embed bias
-    among them) are held to 2 * lr per step."""
-    steps = train_runs["steps"][:n_steps]
+def check_params_and_bn_statistics(runs, n_steps):
+    """After n_steps: parameters at atol 1e-5 and BN running statistics at
+    atol 1e-5. Adam moves an element by lr * g / (|g| + 1e-8), so where |g|
+    is within 100 * eps of zero the step turns gradient rounding into a
+    change of up to 2 * lr (the two sides may step either way); such
+    elements (|g| < 1e-6 in any step so far, the per_embed bias among them)
+    are held to 2 * lr per step."""
+    steps = runs["steps"][:n_steps]
     sd_t, sd_j = steps[-1]["sd_t"], steps[-1]["sd_j"]
     assert set(sd_t) == set(sd_j)
-    for name in train_runs["params"]:
+    for name in runs["params"]:
         tiny = np.zeros(sd_t[name].shape, bool)
         for s in steps:
             tiny |= s["grads_t"][name].abs().numpy() < 100 * ADAM_EPS
@@ -329,6 +336,20 @@ def test_params_and_bn_statistics_match_jax(train_runs, n_steps):
         if "running_" in name:
             err = (sd_t[name] - sd_j[name]).abs().max().item()
             assert err <= 1e-5, (name, err)
+
+
+@pytest.fixture(scope="module", params=["pallas", "xla"])
+def train_runs(request, split):
+    return run_train_parity(split, "full", request.param)
+
+
+def test_train_step_reports_and_gradients_match_jax(train_runs):
+    check_reports_and_gradients(train_runs)
+
+
+@pytest.mark.parametrize("n_steps", [1, N_STEPS])
+def test_params_and_bn_statistics_match_jax(train_runs, n_steps):
+    check_params_and_bn_statistics(train_runs, n_steps)
 
 
 def test_train_mode_model_skips_greedy(split, monkeypatch):

@@ -5,6 +5,7 @@ Evaler, both CLIs, and the explicit device (no CPU fallback)."""
 import json
 import logging
 import os
+import re
 
 import numpy as np
 import pytest
@@ -220,6 +221,42 @@ def test_cuda_without_a_card_raises(split, tmp_path, monkeypatch):
         trainer_cli.main(["--dataset_path", missing])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         evaler_cli.main(["--dataset_path", missing])
+
+
+def drive_clis(model_name, split, tmp_path, monkeypatch, records):
+    """`trainer_cli.main` for 2 steps, its relaunch (which must log
+    "Nothing to do"), then `evaler_cli.main` on the newest checkpoint, all
+    with --device cpu --model `model_name`; the dataset reader serves the
+    in-memory `split` as every split. -> (train_dir, {section: {metric:
+    value}} of the evaler's final report, "Loss" and "Acc")."""
+    from demo2program_tpu.data import dataset
+
+    monkeypatch.setattr(dataset, "create_default_splits",
+                        lambda *a, **kw: (split, split, split))
+    train_dir = str(tmp_path / "train")
+    summary = str(tmp_path / "report.txt")
+    common = ["--device", "cpu", "--model", model_name,
+              "--dataset_path", "in-memory", "--num_k", str(SPLIT.k),
+              "--batch_size", str(BS), "--num_lstm_cell_units", "16"]
+    argv = common + ["--train_dir", train_dir, "--max_steps", "2",
+                     "--log_step", "1", "--test_sample_step", "2",
+                     "--ckpt_save_step", "2"]
+    trainer_cli.main(argv)
+    assert checkpoint.checkpoint_steps(train_dir) == [2]
+    trainer_cli.main(argv)
+    assert any("Nothing to do" in r.getMessage() for r in records)
+    evaler_cli.main(common + ["--train_dir", train_dir, "--max_steps", "1",
+                              "--quiet", "--summary_file", summary])
+    text = open(summary).read()
+    assert f"Model class: {model_name}" in text
+    report = {}
+    for section, body in re.findall(r"\[(Loss|Acc)\]\s*(.*?)(?=\n\[)",
+                                    text, re.S):
+        report[section] = {k: float(v) for k, v in re.findall(
+            r"(\w+):\s*(-?[\d.]+|nan|-?inf)", body)}
+    assert set(report) == {"Loss", "Acc"}
+    assert all(np.isfinite(v) for d in report.values() for v in d.values())
+    return train_dir, report
 
 
 def test_cli_trains_an_hdf5_split(tmp_path, log_records):
