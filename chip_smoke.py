@@ -12,13 +12,15 @@ without them. It:
      and spills for every kernel instance, and checks that none spills;
   3. kernel phase: holds the kernel against its plain PyTorch version on the
      card at every shape of the full model's path (D in {48, 512},
-     H = 512, B in {32, 320}) and at the two only the induction baseline
-     runs ((B, D) = (320, 53) and (160, 1024)), f32 and bf16, prints each
+     H = 512, B in {32, 320}), at beam search's (160, 512) and at the two
+     only the induction baseline runs ((B, D) = (320, 53) and (160,
+     1024)), f32 and bf16, prints each
      launch's grid, block count and load path (`vec`: 16-byte async copies
      or plain loads), and times both versions three ways: back-to-back
      calls from Python (host-paced, `ms`), 50 calls captured in a CUDA
      graph and replayed (device time, `device_ms`), and the host's own time
-     per call (`host_us`);
+     per call (`host_us`); times torch.lstm_cell the same way
+     (`library_device_ms`) and computes the bound (`bound_ms`);
   4. slice phase: makes a seeded in-memory Karel split (k=10, test_k=5,
      T=20, L=45), saves a random-init FullModel at 512 units as a .pt,
      evaluates 3 batches of 32 through the port's Evaler with
@@ -48,9 +50,28 @@ without them. It:
      whose kernel shapes are new), and an eval of the checkpoint through
      the Evaler (finite; no program metrics for induction); prints each
      family's trainer s/step and eval s/batch;
-  7. prints one JSON line describing the kernels, with each family's
-     launches and the baseline shapes' device times, then the result line
-     {"ok": true, "device": {...}} last.
+  7. decode phase: loads the full model's checkpoint from the train phase
+     and evaluates 3 batches through the Evaler in each program decode
+     mode: beam (K = 5) with --execution_rerank, syntax_greedy and
+     syntax_sample; checks 190 launches per batch, that beam search runs
+     its program decoder at (B, D) = (bs * K, 512) = (160, 512), that
+     every syntax-constrained program parses (syntax accuracy 1.0), that
+     beam search with K = 1 decodes the greedy program on the card, that
+     the beams agree between the card and the CPU on one batch (tokens and
+     lengths exact, scores within 1e-3, on the rows with no beam choice
+     within 1e-3 of a tie), and that with the ground truth planted as beam
+     2 the rerank picks, in every row, a beam that reproduces every seen
+     demo; prints each mode's s/batch and VM share;
+  8. scheduled-sampling phase: 10 full-model steps through the Trainer with
+     --scheduled_sampling --scheduled_sampling_decay_steps 20: exact
+     launches (10 x 125 + 190), a finite loss, and one step's gradients on
+     the card vs the CPU on the same injected draws (drawn from the first
+     seed whose sampled choices are none within 1e-3 of a tie);
+  9. prints one JSON line describing the kernel: its time, the plain
+     version's, torch.lstm_cell's (the one library call that computes the
+     same step) and the least time the card could take (bound_ms, by bytes
+     or by operations) at every shape, with every path's launches, then
+     the result line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 TF32 is off throughout: every comparison is against f32 references.
@@ -78,6 +99,7 @@ from demo2program_tpu_torch.data.karel_memory import (
 from demo2program_tpu_torch.eval.evaler import (
     Evaler, config_from_dataset, save_checkpoint)
 from demo2program_tpu_torch.models import objective
+from demo2program_tpu_torch.models.decoder import scheduled_noise
 from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
@@ -85,10 +107,11 @@ from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.step import (
-    forward_loss, global_norm, to_device)
+    forward_loss, global_norm, sampling_prob, to_device)
 from demo2program_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DEVICE = "cuda"  # of every phase's entry points
 OUT_DIR = os.path.join(ROOT, "build", "smoke")
 SEED = 1234
 UNITS = 512
@@ -104,6 +127,16 @@ KERNEL_SHAPES = [(B, D) for D in (48, 512) for B in (32, 320)]
 # CNN features + 5 percepts, at B = bs * k; its attention decoder's cell
 # input, [embedding, attention] = 2 * units, at B = bs * test_k
 BASELINE_SHAPES = [(320, 53), (160, 1024)]
+# beam search folds its K = 5 beams into the batch: the program decoder
+# runs at B = bs * K
+BEAM_WIDTH = 5
+BEAM_SHAPES = [(BATCH * BEAM_WIDTH, 512)]
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
+# HBM bytes/s, and FLOP/s of the tensor cores' TF32 and bf16 products. The
+# f32 kernel takes three TF32 products per f32 product (3xTF32 split).
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_S = {torch.float32: 495e12, torch.bfloat16: 989e12}
+PASSES = {torch.float32: 3, torch.bfloat16: 1}
 # the model on the card vs the plain path on the CPU, same weights: f32
 # sums in other orders through 2*T + L LSTM steps
 MODEL_ATOL = 1e-3
@@ -121,6 +154,13 @@ GRAD_ITEMS = 8  # items of the card-vs-CPU step
 FAMILIES = ("synthesis_baseline", "summarizer", "induction_baseline")
 BASELINE_STEPS, BASELINE_LOG_STEP = 20, 10
 TIMING_REPS = 3  # of the turns kernel, plain, plain, kernel
+DECODE_MODES = ("beam", "syntax_greedy", "syntax_sample")
+# beams card vs CPU: scores within SCORE_ATOL, on the rows where no beam
+# choice (the top K + 1 candidates of any step) lies within TIE_GAP of a
+# tie, since f32 sums in other orders may break such a tie either way
+# (the model's logits differ by about 1e-6 between the two, PERF.md)
+SCORE_ATOL, TIE_GAP = 1e-3, 1e-4
+SS_STEPS, SS_LOG_STEP, SS_DECAY = 10, 5, 20
 
 
 def check(cond, msg):
@@ -198,16 +238,31 @@ def build_phase():
           "a kernel or a function it calls spills registers")
 
 
+def bound(B, D, H, dtype):
+    """The least time the card could take for one step (ms) and what
+    bounds it: each input (x, h, c, W, b) read once and each output (h',
+    c') written once at the HBM rate, or the products 2 B (D + H) 4H, in
+    PASSES tensor-core passes, at the peak rate of their type."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (B * D + 4 * B * H + (D + H) * 4 * H + 4 * H)
+    ops = PASSES[dtype] * 2 * B * (D + H) * 4 * H
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = ops / PEAK_FLOPS_S[dtype] * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
 def kernel_phase():
     """Kernel vs plain version at every shape of the model paths -> list
-    of rows."""
+    of rows; torch.lstm_cell (x @ W[:D] + h @ W[D:] + b, gates i, f, g,
+    o as here) timed beside them."""
     dev = torch.device("cuda")
     H = UNITS
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for B, D in KERNEL_SHAPES + BASELINE_SHAPES:
+        for B, D in KERNEL_SHAPES + BEAM_SHAPES + BASELINE_SHAPES:
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=g, device=dev)
                         * scale).to(dtype)
@@ -220,15 +275,26 @@ def kernel_phase():
             torch.cuda.synchronize()
             err = max((h_k.float() - h_r.float()).abs().max().item(),
                       (c_k.float() - c_r.float()).abs().max().item())
-            bound = max((atol + rtol * r.float().abs()
-                         - (k.float() - r.float()).abs()).min().item()
-                        for k, r in ((h_k, h_r), (c_k, c_r)))
+            margin = min((atol + rtol * r.float().abs()
+                          - (k.float() - r.float()).abs()).min().item()
+                         for k, r in ((h_k, h_r), (c_k, c_r)))
 
             def kernel():
                 fused_lstm.fused_lstm_step(x, h, c, w, b)
 
             def plain():
                 fused_lstm.lstm_step_ref(x, h, c, w, b)
+
+            w_ih, w_hh = w[:D].t().contiguous(), w[D:].t().contiguous()
+            b_hh = torch.zeros_like(b)
+
+            def library():
+                return torch.lstm_cell(x, (h, c), w_ih, w_hh, b, b_hh)
+
+            h_l, c_l = library()
+            lib_err = max((h_l.float() - h_r.float()).abs().max().item(),
+                          (c_l.float() - c_r.float()).abs().max().item())
+            bound_ms, bound_by = bound(B, D, H, dtype)
 
             row = {"B": B, "D": D, "H": H, "dtype": str(dtype)[6:],
                    "max_abs_err": err, "atol": atol, "rtol": rtol,
@@ -238,9 +304,16 @@ def kernel_phase():
                    "ms": time_ms(kernel), "plain_ms": time_ms(plain),
                    "device_ms": device_ms(kernel),
                    "plain_device_ms": device_ms(plain),
-                   "host_us": host_us(kernel), "plain_host_us": host_us(plain)}
+                   "host_us": host_us(kernel), "plain_host_us": host_us(plain),
+                   "library_device_ms": device_ms(library),
+                   "library_max_abs_err": lib_err,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            row["bound_share"] = bound_ms / row["device_ms"]
             print("kernel fused_lstm_step " + json.dumps(row), flush=True)
-            check(bound >= 0, f"kernel disagrees with plain version: {row}")
+            check(margin >= 0, f"kernel disagrees with plain version: {row}")
+            if dtype == torch.float32:
+                check(lib_err <= atol + rtol,
+                      f"torch.lstm_cell is not the same step: {row}")
             rows.append(row)
     return rows
 
@@ -375,11 +448,12 @@ def slice_phase():
     return split, launches
 
 
-def step_grads(model, cfg, batch):
+def step_grads(model, cfg, batch, **kwargs):
     """One train-mode forward and backward (no update) on a copy of `model`
-    -> (loss, grad norm, {parameter: gradient on the CPU})."""
+    -> (loss, grad norm, {parameter: gradient on the CPU}). `kwargs` go to
+    the model (scheduled sampling's probability and draws)."""
     model = copy.deepcopy(model)
-    loss, _ = forward_loss(model, cfg, batch, cfg.model)
+    loss, _ = forward_loss(model, cfg, batch, cfg.model, **kwargs)
     loss.backward()
     named = list(model.named_parameters())
     norm = global_norm([p.grad for _, p in named])
@@ -460,22 +534,48 @@ def lstm_launches(cfg):
             "induction_baseline": (T + T_a, T + 2 * T_a)}[cfg.model]
 
 
+def scheduled_kwargs(cpu_model, cfg, batch, step):
+    """Scheduled sampling's probability at `step` and draws for `batch` (on
+    the CPU), from the first seed at which no sampled id that is fed back
+    lies within TIE_GAP of a tie under the CPU model (on the card, f32
+    sums in other orders could break such a tie the other way)."""
+    p = sampling_prob(cfg, step)
+    n, L = batch["program_tokens"].shape
+    model = copy.deepcopy(cpu_model).train()
+    for seed in range(SEED, SEED + 20):
+        noise = scheduled_noise(L, n, cfg.dim_program_token,
+                                torch.Generator().manual_seed(seed), "cpu")
+        with torch.no_grad():
+            out = model(expand_batch(to_device(batch, "cpu"), cfg),
+                        include_greedy=False, sampling_prob=p, noise=noise)
+        scores = out["pred_program_logits"] + noise[0].transpose(0, 1)
+        top2 = scores.topk(2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1])[:, :-1]
+        fed_back = (noise[1] < p).transpose(0, 1)[:, :-1]
+        if not fed_back.any() or gaps[fed_back].min() >= TIE_GAP:
+            return {"sampling_prob": p, "noise": noise}
+    raise RuntimeError("no draws without a sampled choice near a tie")
+
+
 def train_phase(split, model_name="full", steps=TRAIN_STEPS,
                 log_step=TRAIN_LOG_STEP, compare_plain=True,
-                time_steps=True):
-    """Train `model_name` through the Trainer, check launches, loss and one
-    step's gradients, evaluate the checkpoint through the Evaler."""
-    tag = "train" if model_name == "full" else model_name
-    train_dir = os.path.join(OUT_DIR, "train_" + model_name)
+                time_steps=True, name=None, extra_flags=(),
+                check_falling=True):
+    """Train `model_name` through the Trainer (with `extra_flags`), check
+    launches, loss and one step's gradients, evaluate the checkpoint
+    through the Evaler."""
+    name = name or model_name
+    tag = "train" if name == "full" else name
+    train_dir = os.path.join(OUT_DIR, "train_" + name)
     shutil.rmtree(train_dir, ignore_errors=True)
     args = trainer_cli.parse_args([
-        "--device", "cuda", "--model", model_name,
+        "--device", DEVICE, "--model", model_name,
         "--dataset_path", "in-memory", "--train_dir", train_dir,
         "--num_k", str(SPLIT.k), "--batch_size", str(BATCH),
         "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
         "--seed", str(SEED), "--max_steps", str(steps),
         "--log_step", str(log_step), "--test_sample_step", str(steps),
-        "--ckpt_save_step", str(steps)])
+        "--ckpt_save_step", str(steps), *extra_flags])
     trainer = Trainer(args, split, split, device=args.device)
     cfg = trainer.cfg
     per_step, per_sample = lstm_launches(cfg)
@@ -503,9 +603,9 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
           f"{per_step} + {samples} x {per_sample} = {expected}")
     losses = torch.stack(losses).cpu().numpy()
     windows = losses.reshape(-1, log_step).mean(axis=1)
-    check(np.isfinite(losses).all(), f"{model_name}: non-finite train loss")
-    check(windows[-1] < windows[0],
-          f"{model_name}: mean loss of the last log window {windows[-1]} "
+    check(np.isfinite(losses).all(), f"{name}: non-finite train loss")
+    check(windows[-1] < windows[0] or not check_falling,
+          f"{name}: mean loss of the last log window {windows[-1]} "
           f"is not below the first one's {windows[0]}")
     with open(os.path.join(train_dir, "metrics.jsonl")) as f:
         rows = [json.loads(line) for line in f]
@@ -517,16 +617,21 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
     # one step from the trained weights: card vs CPU, kernel vs plain
     batch = split.get_batch_compact(split.ids[:GRAD_ITEMS])
     card = to_device(batch, trainer.device)
-    on_card = step_grads(trainer.model, cfg, card)
     cpu_model = get_model_class(model_name)(cfg)
     cpu_model.load_state_dict(trainer.model.state_dict())
+    kw_cpu = kw_card = {}
+    if cfg.scheduled_sampling:  # the same draws on both sides
+        kw_cpu = scheduled_kwargs(cpu_model, cfg, batch, trainer.state.step)
+        kw_card = dict(kw_cpu, noise=tuple(
+            t.to(trainer.device) for t in kw_cpu["noise"]))
+    on_card = step_grads(trainer.model, cfg, card, **kw_card)
     vs_cpu = compare_grads(f"{tag}: card vs CPU", on_card, step_grads(
-        cpu_model, cfg, to_device(batch, "cpu")))
+        cpu_model, cfg, to_device(batch, "cpu"), **kw_cpu))
     vs_plain = None
     if compare_plain:
         with mock.patch.object(fused_lstm, "fused_lstm_step",
                                fused_lstm.lstm_step_ref):
-            plain = step_grads(trainer.model, cfg, card)
+            plain = step_grads(trainer.model, cfg, card, **kw_card)
         vs_plain = compare_grads(f"{tag}: kernel vs plain step", on_card,
                                  plain)
 
@@ -535,7 +640,7 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
         "--checkpoint", ckpt, "--num_k", str(SPLIT.k),
         "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
         "--cell_impl", "pallas", "--max_steps", str(N_BATCHES), "--quiet",
-        "--no_write_summary"])
+        "--no_write_summary", "--device", DEVICE])
     evaler = Evaler(eval_args, split, device=eval_args.device)
     for name, t in trainer.model.state_dict().items():
         check(torch.equal(evaler.model.state_dict()[name], t),
@@ -553,7 +658,8 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
           f"{model_name}: program metrics in the eval report: {has_program}")
 
     summary = {
-        "model": model_name, "units": UNITS, "batch_size": BATCH,
+        "model": model_name, "flags": list(extra_flags), "units": UNITS,
+        "batch_size": BATCH, "checkpoint": ckpt,
         "k": cfg.k, "T": cfg.max_demo_len, "L": cfg.max_program_len,
         "steps": steps, "seconds": seconds,
         "trainer_s_per_step": (times[steps] - times[log_step])
@@ -581,6 +687,142 @@ def baselines_phase(split):
             for name in FAMILIES}
 
 
+def decode_evaler(split, ckpt, mode):
+    """The Evaler of the trained full model in decode mode `mode` (beam:
+    K = BEAM_WIDTH, with --execution_rerank)."""
+    flags = ["--model", "full", "--dataset_path", "in-memory",
+             "--checkpoint", ckpt, "--num_k", str(SPLIT.k),
+             "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
+             "--cell_impl", "pallas", "--max_steps", str(N_BATCHES),
+             "--quiet", "--no_write_summary", "--device", DEVICE,
+             "--unroll_type", mode, "--beam_width", str(BEAM_WIDTH)]
+    if mode == "beam":
+        flags.append("--execution_rerank")
+    args = parse_args(flags)
+    return Evaler(args, split, device=args.device)
+
+
+class TopKGaps:
+    """Wraps torch.topk while beam search runs: per row, the smallest gap
+    among the top K + 1 candidates of any step (the beam's choices and the
+    first one it dropped)."""
+
+    def __init__(self):
+        self.gaps = None
+        self.original = torch.topk
+
+    def __call__(self, x, k, dim=-1, **kw):
+        top = self.original(x, k + 1, dim=dim).values
+        gap = (top[:, :-1] - top[:, 1:]).min(dim=1).values
+        self.gaps = gap if self.gaps is None else torch.minimum(self.gaps,
+                                                                gap)
+        return self.original(x, k, dim=dim, **kw)
+
+
+def beam_checks(evaler, split):
+    """On the first batch: K = 1 beam search vs greedy on the card; the
+    beams on the card vs the CPU; the planted rerank."""
+    cfg, model, dev = evaler.cfg, evaler.model, evaler.device
+    L = cfg.max_program_len
+    raw = split.get_batch_compact(split.ids[:BATCH])
+    batch = to_device(raw, dev)
+    with torch.no_grad():
+        enc = model.encoder(expand_batch(batch, cfg)["s_h"],
+                            batch["demo_len"].long())
+        c, h = enc["demo_c_summary"], enc["demo_h_summary"]
+        b_tok, b_len, _ = model.program_decoder.beam(c, h, L, 1)
+        _, g_tok, g_len = model.program_decoder.greedy(c, h, L)
+    inside = torch.arange(L, device=dev)[None, :] < b_len[:, None].long()
+    check(torch.equal(b_len, g_len) and torch.equal(
+        torch.where(inside, b_tok, -1), torch.where(inside, g_tok, -1)),
+          "beam search with K = 1 does not decode the greedy program")
+
+    with torch.no_grad():
+        out_k = model(expand_batch(batch, cfg), decode_mode="beam")
+        cpu_model = FullModel(cfg)
+        cpu_model.load_state_dict(model.state_dict())
+        gaps = TopKGaps()
+        with mock.patch.object(torch, "topk", gaps):
+            out_c = cpu_model.eval()(expand_batch(to_device(raw, "cpu"), cfg),
+                                     decode_mode="beam")
+    rows = gaps.gaps >= TIE_GAP
+    n_rows = int(rows.sum())
+    check(n_rows >= BATCH // 4, f"only {n_rows} of {BATCH} rows have no "
+          f"beam choice within {TIE_GAP} of a tie")
+    tok_k, tok_c = (o["beam_tokens"].cpu()[rows] for o in (out_k, out_c))
+    len_k, len_c = (o["beam_lengths"].cpu()[rows] for o in (out_k, out_c))
+    sc_k, sc_c = (o["beam_scores"].cpu()[rows] for o in (out_k, out_c))
+    score_err = (sc_k - sc_c).abs().max().item()
+    check(torch.equal(tok_k, tok_c) and torch.equal(len_k, len_c),
+          "beam tokens or lengths differ between the card and the CPU")
+    check(score_err <= SCORE_ATOL,
+          f"beam scores differ by {score_err} between the card and the CPU")
+
+    tokens = out_k["beam_tokens"].cpu().numpy().copy()
+    lengths = out_k["beam_lengths"].cpu().numpy().copy()
+    tokens[:, 2] = raw["program_tokens"]
+    lengths[:, 2] = raw["program_len"][:, 0]
+    pick = evaler.scorer.rerank_pick(tokens, lengths, batch)
+    picked = np.arange(BATCH)
+    nc, _ = evaler.scorer.execution_compact(
+        tokens[picked, pick], lengths[picked, pick],
+        np.zeros(BATCH, np.float32), batch)
+    check((nc == cfg.k).all(), "a reranked beam does not reproduce its "
+          "seen demos with the ground truth planted as beam 2")
+    return {"k1_equals_greedy": True, "cpu_rows_compared": n_rows,
+            "cpu_score_max_abs_diff": score_err,
+            "planted_picks": np.bincount(pick, minlength=BEAM_WIDTH).tolist()}
+
+
+def decode_phase(split, ckpt):
+    """Evaluate the trained full model's checkpoint in each decode mode."""
+    results = {}
+    for mode in DECODE_MODES:
+        evaler = decode_evaler(split, ckpt, mode)
+        per_batch = lstm_launches(evaler.cfg)[1]
+        shapes = {}  # (B, D) of the cells' launches -> the first's plan
+
+        def record(cell, inputs, output):
+            shapes.setdefault(tuple(inputs[1].shape), fused_lstm.last_plan())
+
+        hooks = [m.register_forward_hook(record)
+                 for m in evaler.model.modules()
+                 if isinstance(m, fused_lstm.FusedLSTMCell)]
+        fused_lstm.fused_lstm_step.launches = 0
+        loss, acc, hist = evaler.eval_run()
+        launches = fused_lstm.fused_lstm_step.launches
+        for hook in hooks:
+            hook.remove()
+        check(launches == N_BATCHES * per_batch,
+              f"{mode}: {launches} kernel launches in {N_BATCHES} batches, "
+              f"expected {N_BATCHES} x {per_batch}")
+        check(all(np.isfinite(v).all() for d in (loss, acc, hist)
+                  for v in d.values()), f"{mode}: non-finite report")
+        t = evaler.timings
+        res = {"mode": mode, "launches": launches,
+               "s_per_batch": t["batch"], "forward_s": t["forward"],
+               "vm_s": t["vm"], "vm_share": sum(t["vm"]) / sum(t["batch"]),
+               "greedy_program_syntax_acc": acc["greedy_program_syntax_acc"],
+               "greedy_exact_program_accuracy":
+                   acc["greedy_exact_program_accuracy"],
+               "greedy_execution_all_correct":
+                   float(hist["greedy_program_execution_acc_hist"][-1]),
+               "shapes": sorted(shapes)}
+        if mode == "beam":
+            beam_shape = (BATCH * BEAM_WIDTH, UNITS)
+            check(beam_shape in shapes, f"beam: no launch at {beam_shape}: "
+                  f"{sorted(shapes)}")
+            res["beam_plan"] = shapes[beam_shape]
+            res["rerank_changed_rate"] = acc["rerank_changed_rate"]
+            res.update(beam_checks(evaler, split))
+        else:
+            check(acc["greedy_program_syntax_acc"] == 1.0,
+                  f"{mode}: a constrained program does not parse")
+        print("decode " + json.dumps(res), flush=True)
+        results[mode] = res
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -597,28 +839,34 @@ def main():
     split, launches = slice_phase()
     train = train_phase(split)
     baselines = baselines_phase(split)
+    decode = decode_phase(split, train["checkpoint"])
+    ss = train_phase(split, steps=SS_STEPS, log_step=SS_LOG_STEP,
+                     compare_plain=False, time_steps=False,
+                     name="full_scheduled", check_falling=False,
+                     extra_flags=("--scheduled_sampling",
+                                  "--scheduled_sampling_decay_steps",
+                                  str(SS_DECAY)))
+
+    def timed(r):  # the contract's names, device times of this run
+        return {"ms": r["device_ms"], "plain_ms": r["plain_device_ms"],
+                "library_ms": r["library_device_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     main_shape = next(r for r in f32 if r["B"] == 320 and r["D"] == 512)
-    decoder = next(r for r in f32 if r["B"] == 32 and r["D"] == 512)
     print(json.dumps({"kernels": [{
         "name": "fused_lstm_step", "route": "cuda",
         "source": "demo2program_tpu_torch/csrc/fused_lstm.cu",
         "replaces": "demo2program_tpu/ops/pallas_lstm.py:70",
-        "launches": launches, "train_launches": train["launches"],
+        "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "device_ms": main_shape["device_ms"],
-        "plain_device_ms": main_shape["plain_device_ms"],
-        "b32_device_ms": decoder["device_ms"],
-        "b32_plain_device_ms": decoder["plain_device_ms"],
-        "family_launches": {"full": train["launches"], **{
-            name: b["launches"] for name, b in baselines.items()}},
-        "baseline_shapes": [
-            {k: r[k] for k in ("B", "D", "dtype", "max_abs_err", "vec",
-                               "blocks", "device_ms", "plain_device_ms")}
-            for r in rows if (r["B"], r["D"]) in BASELINE_SHAPES],
-        "shapes": rows}]}), flush=True)
+        **timed(main_shape), "shape": [320, 512, UNITS],
+        "path_launches": {
+            "eval": launches, "train": train["launches"],
+            **{name: b["launches"] for name, b in baselines.items()},
+            **{f"decode_{m}": d["launches"] for m, d in decode.items()},
+            "train_scheduled_sampling": ss["launches"]},
+        "shapes": [dict(r, **timed(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,6 +8,7 @@ accuracy (ops/vm.py, eval/scorer.py).
 
 Each module mirrors the path and names of its JAX counterpart in
 demo2program_tpu, which stays the reference. The framework-free layers
-(dsl/, envs/, utils/) are imported from demo2program_tpu, not copied. This
-package imports torch and never jax, flax, optax, orbax or h5py at import.
+(dsl/, envs/, utils/, cli/flags.py, the HDF5 reader data/dataset.py) are
+the port's own copies: this package imports nothing of demo2program_tpu,
+and torch but never jax, flax, optax, orbax or h5py at import.
 """

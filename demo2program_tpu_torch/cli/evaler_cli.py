@@ -1,5 +1,4 @@
-"""Evaluation entry point of the port (greedy decode): the Karel model
-families `--model full | synthesis_baseline | summarizer |
+"""Evaluation entry point of the port: the Karel model families `--model full | synthesis_baseline | summarizer |
 induction_baseline` (default full); an induction checkpoint reports action
 accuracies and no program ones.
 
@@ -8,15 +7,18 @@ accuracies and no program ones.
         --model synthesis_baseline
 
 Flags follow demo2program_tpu/cli/evaler_cli.py (the shared
-demo2program_tpu.cli.flags parser), plus `--device {cuda,cpu}` (default
+cli/flags.py parser, the port's copy), plus `--device {cuda,cpu}` (default
 cuda; without a card, cuda raises). `--checkpoint` takes a trainer
 checkpoint or a bare state_dict; `--train_dir` evaluates its newest
-checkpoint. The options not ported yet (beam and syntax decoding,
---pred_program, --result_data, --sweep_steps) are absent. Reading an HDF5
-dataset needs h5py.
+checkpoint. `--unroll_type {greedy,syntax_greedy,syntax_sample,beam}`
+picks the program decoding, `--beam_width` the beams and
+`--execution_rerank` the beam that reproduces the seen demos. `--rerank_k`
+is ViZDoom's and raises. The options not ported yet (--pred_program,
+--result_data, --sweep_steps) are absent. Reading an HDF5 dataset needs
+h5py.
 """
 
-from demo2program_tpu.cli.flags import base_parser
+from demo2program_tpu_torch.cli.flags import base_parser
 
 
 def build_parser():
@@ -31,6 +33,19 @@ def build_parser():
     p.add_argument("--max_steps", type=int, default=0,
                    help="number of batches; 0 = the whole split")
     p.add_argument("--quiet", action="store_true", default=False)
+    p.add_argument("--unroll_type", type=str, default="greedy",
+                   choices=["greedy", "syntax_greedy", "syntax_sample",
+                            "beam"],
+                   help="program decoding mode; syntax_* mask each step to "
+                        "the grammar-legal tokens (pushdown on the device); "
+                        "beam = beam search (--beam_width)")
+    p.add_argument("--beam_width", type=int, default=5)
+    p.add_argument("--execution_rerank", action="store_true", default=False,
+                   help="with --unroll_type beam: report, as the decoded "
+                        "program, the highest-scoring beam that reproduces "
+                        "all SEEN demos")
+    p.add_argument("--rerank_k", type=int, default=0,
+                   help="ViZDoom only (not ported): a nonzero value raises")
     p.add_argument("--no_write_summary", action="store_true", default=False)
     p.add_argument("--summary_file", type=str, default=None)
     return p
@@ -45,7 +60,7 @@ def parse_args(argv=None):
 def main(argv=None):
     import torch
 
-    from demo2program_tpu.data.dataset import create_default_splits
+    from demo2program_tpu_torch.data.dataset import create_default_splits
     from demo2program_tpu_torch.eval.evaler import Evaler
     from demo2program_tpu_torch.train.step import resolve_device
 

@@ -6,7 +6,7 @@ full | synthesis_baseline | summarizer | induction_baseline` (default full).
         --model summarizer
 
 Flags follow demo2program_tpu/cli/trainer_cli.py (the shared
-demo2program_tpu.cli.flags parsers), plus `--device {cuda,cpu}` (default
+cli/flags.py parsers, the port's copy), plus `--device {cuda,cpu}` (default
 cuda; without a card, cuda raises). Relaunching a finished stage logs
 "Nothing to do" before loading any data. Reading an HDF5 dataset needs
 h5py; train/trainer.py:Trainer takes any split with `ids` and
@@ -16,8 +16,8 @@ h5py; train/trainer.py:Trainer takes any split with `ids` and
 import json
 import os
 
-from demo2program_tpu.cli.flags import add_train_flags, base_parser
-from demo2program_tpu.utils import log
+from demo2program_tpu_torch.cli.flags import add_train_flags, base_parser
+from demo2program_tpu_torch.utils import log
 from demo2program_tpu_torch.train.checkpoint import checkpoint_steps
 
 
@@ -62,7 +62,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from demo2program_tpu.data.dataset import create_default_splits
+    from demo2program_tpu_torch.data.dataset import create_default_splits
     from demo2program_tpu_torch.train.trainer import Trainer
 
     ds_train, ds_test, _ = create_default_splits(args.dataset_path,

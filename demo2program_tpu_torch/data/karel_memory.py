@@ -13,11 +13,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from demo2program_tpu.dsl import karel_interp, karel_parser
-from demo2program_tpu.dsl.karel_sampler import KarelProgramSampler
-from demo2program_tpu.dsl.karel_vocab import KarelVocab
-from demo2program_tpu.envs import KarelStateGenerator, KarelWorld
-from demo2program_tpu.envs.karel import batch_to_states
+from demo2program_tpu_torch.dsl import karel_interp, karel_parser
+from demo2program_tpu_torch.dsl.karel_sampler import KarelProgramSampler
+from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
+from demo2program_tpu_torch.envs.karel import KarelStateGenerator, KarelWorld
+from demo2program_tpu_torch.envs.karel import batch_to_states
 
 # the generator's fixed settings (data/karel_generator.py:GeneratorConfig)
 _H = _W = 8

@@ -1,4 +1,5 @@
-"""Evaluation loop (greedy decode), every Karel model family (`--model`).
+"""Evaluation loop, every Karel model family (`--model`) and program decode
+mode (`--unroll_type greedy | syntax_greedy | syntax_sample | beam`).
 
 Port of demo2program_tpu/eval/evaler.py: walks a split in order, without
 shuffling, for a fixed number of full batches and prints the reference's
@@ -21,7 +22,14 @@ Differences from the JAX evaler:
   * `timings` holds, per batch, the seconds of the whole batch, of the
     model forward (expand + model + objective, ending in the copy of the
     results to the host), of VM scoring and of host syntax/canonical work
-    (eval/scorer.py).
+    (eval/scorer.py); with `--execution_rerank` the VM time includes the
+    reranking's runs.
+
+With `--unroll_type beam --execution_rerank` the decoded program of each
+example is the highest-scoring beam that reproduces all seen demos
+(scorer.rerank_pick), and the final report adds `rerank_changed_rate`, the
+share of examples where that is not the best beam. `--rerank_k` is
+ViZDoom's and raises.
 
 The induction baseline decodes no program: as in the JAX evaler, nothing is
 scored and the report holds its action scalars only.
@@ -33,17 +41,18 @@ import time
 import numpy as np
 import torch
 
-from demo2program_tpu.dsl import karel_canonical
-from demo2program_tpu.dsl.karel_vocab import KarelVocab
-from demo2program_tpu.envs.karel import NUM_STATE_CHANNELS, PERCEPTION_NAMES
-from demo2program_tpu.utils import log
-from demo2program_tpu_torch.eval.scorer import KarelScorer
+from demo2program_tpu_torch.dsl import karel_canonical
+from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
+from demo2program_tpu_torch.envs.karel import (
+    NUM_STATE_CHANNELS, PERCEPTION_NAMES)
+from demo2program_tpu_torch.eval.scorer import KarelScorer, to_host
 from demo2program_tpu_torch.models.common import ModelConfig
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.train import checkpoint as ckpt_io
 from demo2program_tpu_torch.train.step import (
     make_eval_step, resolve_device, to_device)
+from demo2program_tpu_torch.utils import log
 
 
 def config_from_dataset(args, dataset):
@@ -65,6 +74,7 @@ def config_from_dataset(args, dataset):
         scheduled_sampling_decay_steps=args.scheduled_sampling_decay_steps,
         cell_impl=args.cell_impl,
         compute_dtype=args.compute_dtype,
+        beam_width=getattr(args, "beam_width", 5),
         dim_program_token=len(vocab.int2token),
         max_program_len=item["program_tokens"].shape[1],
         k=item["c_wall"].shape[1],
@@ -87,6 +97,10 @@ def save_checkpoint(model, path):
 
 class Evaler:
     def __init__(self, args, dataset, device="cuda"):
+        if getattr(args, "rerank_k", 0):
+            raise NotImplementedError(
+                "--rerank_k reranks against extra stored ViZDoom demos; "
+                "ViZDoom is not ported")
         self.args = args
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -108,8 +122,9 @@ class Evaler:
             init_parameters(model, torch.Generator().manual_seed(args.seed))
             self.checkpoint_name = "random_init"
         self.model = model.to(self.device).eval()
-        self.eval_step = make_eval_step(self.model, self.cfg,
-                                        self.cfg.model)
+        self.eval_step = make_eval_step(
+            self.model, self.cfg, self.cfg.model,
+            decode_mode=getattr(args, "unroll_type", "greedy"))
         self.scorer = KarelScorer(self.cfg, self.device, self.vocab)
         self.summary_file = self.checkpoint + \
             "_report_testdata{}_num_k{}.txt".format(
@@ -125,6 +140,8 @@ class Evaler:
             raise ValueError(f"{max_steps} batches of {bs} asked for; the "
                              f"split holds {n_full}")
         karel_canonical.STATS.update(compares=0, cap_fallbacks=0)
+        rerank = getattr(args, "execution_rerank", False)
+        self._rerank_changed = self._rerank_total = 0
         timings = {"batch": [], "forward": [], "vm": [], "host": []}
         sums, hist_sums = {}, {}
         for s in range(max_steps):
@@ -137,6 +154,8 @@ class Evaler:
             report = {k: float(v) for k, v in report.items()}
             evals = {k: v.cpu().numpy() for k, v in evals.items()}
             timings["forward"].append(time.perf_counter() - t0)
+            if rerank and "beam_tokens" in evals:
+                self._apply_rerank(batch, evals)
             scores = self.scorer.score_batch(batch, evals) if evals else {}
             step_time = time.perf_counter() - t0
             timings["batch"].append(step_time)
@@ -161,6 +180,9 @@ class Evaler:
         if stats["compares"]:
             acc_avg["canonical_fallback_rate"] = (
                 stats["cap_fallbacks"] / stats["compares"])
+        if rerank and self._rerank_total:
+            acc_avg["rerank_changed_rate"] = (
+                self._rerank_changed / self._rerank_total)
         self.timings = timings
         final = self._final_msg(loss_avg, acc_avg, hist_avg,
                                 sum(timings["batch"]))
@@ -171,6 +193,40 @@ class Evaler:
                                 args.dataset_path, final))
         log.warning("Completed Evaluation.")
         return loss_avg, acc_avg, hist_avg
+
+    def _apply_rerank(self, batch, evals):
+        """Execution-guided beam selection (demo2program_tpu/eval/
+        evaler.py:224-264): point the greedy_* eval arrays at the
+        highest-scoring beam that reproduces all seen demos (the model's own
+        inputs, no test-demo information), then recompute the picked
+        programs' sequence and token accuracies on the host."""
+        order = np.argsort(-evals["beam_scores"], axis=1, kind="stable")
+        bt = np.take_along_axis(evals["beam_tokens"], order[:, :, None],
+                                axis=1)
+        bl = np.take_along_axis(evals["beam_lengths"].astype(np.int32),
+                                order, axis=1)
+        pick = self.scorer.rerank_pick(bt, bl, batch)
+        rows = np.arange(len(pick))
+        tokens, lens = bt[rows, pick], bl[rows, pick]
+        self._rerank_changed += int((pick != 0).sum())
+        self._rerank_total += len(pick)
+
+        gt_tokens = to_host(batch["program_tokens"])
+        gt_len = to_host(batch["program_len"])[:, 0].astype(int)
+        bs = tokens.shape[0]
+        same = np.zeros(bs, np.float32)
+        tok_acc = np.zeros(bs, np.float32)
+        for i in range(bs):
+            gl, pl = int(gt_len[i]), int(lens[i])
+            m = min(gl, pl)
+            match = (tokens[i, :m] == gt_tokens[i, :m]).sum()
+            tok_acc[i] = match / max(gl, pl, 1)
+            same[i] = float(pl == gl and match == gl)
+        evals["greedy_tokens"] = tokens
+        evals["greedy_len"] = lens
+        evals["greedy_is_same_seq"] = same
+        evals["greedy_program_seq_acc"] = same.mean()
+        evals["greedy_program_token_acc"] = tok_acc.mean()
 
     # -- report formatting (demo2program_tpu/eval/evaler.py:292-432) --------
     def _assemble(self, report, evals, scores):

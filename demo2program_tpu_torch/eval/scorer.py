@@ -22,15 +22,15 @@ import time
 import numpy as np
 import torch
 
-from demo2program_tpu.dsl import karel_canonical, karel_parser
-from demo2program_tpu.dsl.karel_bytecode import (
+from demo2program_tpu_torch.dsl import karel_canonical, karel_parser
+from demo2program_tpu_torch.dsl.karel_bytecode import (
     DEFAULT_MAX_CODE_LEN, compile_batch)
-from demo2program_tpu.dsl.karel_vocab import KarelVocab
+from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
 from demo2program_tpu_torch.ops import reconstruct, vm
 from demo2program_tpu_torch.ops.grids import decode_states
 
 
-def _host(a):
+def to_host(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
@@ -104,7 +104,7 @@ class KarelScorer:
                          init, demo_len, bs, k):
         t0 = time.perf_counter()
         codes, compiled_ok = compile_batch(
-            _host(pred_tokens), _host(pred_len), self.vocab,
+            to_host(pred_tokens), to_host(pred_len), self.vocab,
             self.max_code_len)
         codes_rep = np.repeat(codes, k, axis=0)  # one program per demo
         t1 = time.perf_counter()
@@ -118,7 +118,7 @@ class KarelScorer:
         self.timings["host"] += t1 - t0
         self.timings["vm"] += time.perf_counter() - t1
 
-        same = _host(is_same_seq).astype(bool)[:, None]
+        same = to_host(is_same_seq).astype(bool)[:, None]
         ok = compiled_ok[:, None]
         # execute only when syntactically valid and not an exact token
         # match; exact matches are correct by definition
@@ -131,13 +131,28 @@ class KarelScorer:
             hist[i] = float((num_correct == i).sum()) / len(num_correct)
         return hist
 
+    def rerank_pick(self, beam_tokens, beam_lens, batch):
+        """Execution-guided beam selection (demo2program_tpu/eval/
+        scorer.py:137-152): per example, the first beam (beams arrive
+        sorted by score) whose program reproduces ALL seen demos, the
+        model's own inputs, else beam 0. One batched VM call per beam.
+        beam_tokens (bs, K, L), beam_lens (bs, K) -> pick (bs,) int."""
+        bs, K, _ = beam_tokens.shape
+        all_ok = np.zeros((bs, K), bool)
+        no_shortcut = np.zeros(bs, np.float32)
+        for j in range(K):
+            nc, _ = self.execution_compact(
+                beam_tokens[:, j], beam_lens[:, j], no_shortcut, batch)
+            all_ok[:, j] = nc == self.cfg.k
+        return np.where(all_ok.any(axis=1), all_ok.argmax(axis=1), 0)
+
     def score_batch(self, batch, evals):
         """Full scoring of one compact eval batch (tensors on the scorer's
         device) for the teacher-forced and the greedy predictions. `evals`
         comes from objective.program_eval_tensors (numpy or tensors).
         Returns a flat dict of scalars + per-example arrays."""
-        gt_tokens = _host(batch["program_tokens"])
-        gt_len = _host(batch["program_len"])[:, 0].astype(np.int64)
+        gt_tokens = to_host(batch["program_tokens"])
+        gt_len = to_host(batch["program_len"])[:, 0].astype(np.int64)
         res = {}
         for name, tok_key, len_key, same_key in [
                 ("", "pred_tokens", "pred_len", "pred_is_same_seq"),
@@ -145,9 +160,9 @@ class KarelScorer:
                  "greedy_is_same_seq")]:
             if tok_key not in evals:
                 continue
-            tokens = _host(evals[tok_key])
-            lens = _host(evals[len_key])
-            same = _host(evals[same_key])
+            tokens = to_host(evals[tok_key])
+            lens = to_host(evals[len_key])
+            same = to_host(evals[same_key])
             syntax, exact = self.syntax_and_exact(
                 tokens, lens, same, gt_tokens, gt_len)
             res[f"{name}is_correct_syntax"] = syntax

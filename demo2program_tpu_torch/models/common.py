@@ -71,15 +71,13 @@ class ModelConfig:
 
 def check_ported(cfg):
     """Raise NotImplementedError for what no model family of the port runs
-    yet: ViZDoom, bf16 model compute and scheduled sampling."""
+    yet: ViZDoom and bf16 model compute."""
     if cfg.dataset_type != "karel":
         raise NotImplementedError(
             f"{cfg.model!r} on {cfg.dataset_type!r} is not ported")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r} is not ported")
-    if cfg.scheduled_sampling:
-        raise NotImplementedError("scheduled sampling is not ported")
 
 
 def fold_k(x):

@@ -3,11 +3,12 @@
 Port of demo2program_tpu/models/full.py (`model_full.py`): program decoder
 started from the residual rn summaries, per-demo action decoders and
 perception decoders with weights shared across the k demos (k folded into
-the batch). Program decoding is greedy (the greedy branch of
-demo2program_tpu/models/synthesis.py:_decode_program); the train step skips
-both greedy decoders (`include_greedy=False`). Train or eval mode is torch's
-`train()` / `eval()`, the flax `train` field. Scheduled sampling, bf16
-compute and the other decode modes are not ported.
+the batch). The program decoder's outputs are the synthesis baseline's
+(models/synthesis.py:program_outputs): teacher-forced or scheduled
+sampling, and every decode mode; the action decoder decodes greedily. The
+train step skips both decoders' decoding (`include_greedy=False`). Train or
+eval mode is torch's `train()` / `eval()`, the flax `train` field. bf16
+compute is not ported.
 
 The "greedy" perception head is teacher-forced (`model_full.py:409`), so
 the same tensor is exposed under both names.
@@ -18,7 +19,7 @@ from torch import nn
 from demo2program_tpu_torch.models.common import (
     TwoPassDemoEncoder, check_ported, fold_k, unfold_k)
 from demo2program_tpu_torch.models.decoder import TokenDecoder, VectorDecoder
-from demo2program_tpu_torch.models.synthesis import decode_program
+from demo2program_tpu_torch.models.synthesis import program_outputs
 
 
 class FullModel(nn.Module):
@@ -36,17 +37,20 @@ class FullModel(nn.Module):
             cfg.action_space, units, cfg.action_space - 1, cfg.cell_impl)
         self.per_decoder = VectorDecoder(cfg.per_dim, units, cfg.cell_impl)
 
-    def forward(self, batch, include_greedy=True, decode_mode="greedy"):
-        """batch: the expanded batch (ops/reconstruct.py:expand_batch)."""
+    def forward(self, batch, include_greedy=True, decode_mode="greedy",
+                sampling_prob=None, noise=None, decode_noise=None,
+                generator=None):
+        """batch: the expanded batch (ops/reconstruct.py:expand_batch).
+        The keyword arguments are those of synthesis.program_outputs."""
         cfg = self.cfg
         bs = batch["s_h"].shape[0]
         k = cfg.k
         enc = self.encoder(batch["s_h"], batch["demo_len"].long())
-
-        out = {}
-        gt_tokens = batch["program_tokens"].long()
-        out["pred_program_logits"] = self.program_decoder.teacher_forced(
-            enc["demo_c_summary"], enc["demo_h_summary"], gt_tokens)
+        out = program_outputs(
+            self.program_decoder, enc["demo_c_summary"],
+            enc["demo_h_summary"], batch, cfg, self.training,
+            include_greedy, decode_mode, sampling_prob, noise, decode_noise,
+            generator)
 
         a_c = fold_k(enc["demo_c"])
         a_h = fold_k(enc["demo_h"])
@@ -59,10 +63,6 @@ class FullModel(nn.Module):
         out["greedy_per_logits"] = out["pred_per_logits"]
         if not include_greedy:
             return out
-
-        out.update(decode_program(
-            self.program_decoder, enc["demo_c_summary"],
-            enc["demo_h_summary"], cfg, decode_mode))
         ga_logits, ga_tokens, ga_len = self.action_decoder.greedy(
             a_c, a_h, cfg.max_demo_len)
         out.update(greedy_action_logits=unfold_k(ga_logits, bs, k),

@@ -170,10 +170,14 @@ class InductionModel(BaselineAggregation):
             cfg.action_space, units, memory_features, cfg.cell_impl,
             cfg.attn_type)
 
-    def forward(self, batch, include_greedy=True):
+    def forward(self, batch, include_greedy=True, sampling_prob=None,
+                noise=None, generator=None):
         """batch: the expanded batch with the test demos' actions
         (`test_a_h_tokens`) -> pred_action_logits (bs, test_k, T, A) and,
-        with include_greedy, greedy_action_{logits,tokens,len}."""
+        with include_greedy, greedy_action_{logits,tokens,len}. Scheduled
+        sampling (`sampling_prob`, `noise`, `generator`) is accepted and
+        ignored, as in the JAX module
+        (demo2program_tpu/models/induction.py:159-160)."""
         cfg = self.cfg
         bs, k, test_k = batch["s_h"].shape[0], cfg.k, cfg.test_k
         s_h, per = batch["s_h"], batch["per"]

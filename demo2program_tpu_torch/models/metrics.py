@@ -18,11 +18,14 @@ def _length_mask(lengths, max_len):
     return (ar < lengths[..., None]).float()
 
 
-def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program"):
+def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program",
+                     pred_tokens=None):
     """Returns dict(loss, token_acc, seq_acc, is_same_seq, pred_tokens).
 
     logits/gt_onehot: (..., bs, L, V); gt_len/pred_len: (..., bs) int.
-    For seq_type='per' only the loss is meaningful."""
+    For seq_type='per' only the loss is meaningful. `pred_tokens` (..., bs,
+    L) replaces the logits' argmax as the prediction (scheduled sampling
+    reports its sampled ids)."""
     L = logits.shape[-2]
     gt_onehot = gt_onehot.float()  # labels may arrive as uint8
     gt_len = gt_len.long()
@@ -41,7 +44,8 @@ def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program"):
     out = {"loss": loss}
     if seq_type in ("program", "action"):
         gt_am = torch.argmax(gt_onehot, dim=-1)
-        pred_am = torch.argmax(logits, dim=-1)
+        pred_am = (torch.argmax(logits, dim=-1) if pred_tokens is None
+                   else pred_tokens.long())
         correct = (gt_am == pred_am).float()
         out["token_acc"] = (correct * min_mask).sum((-2, -1)) / max_mask.sum(
             (-2, -1)).clamp(min=1.0)

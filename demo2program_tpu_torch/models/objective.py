@@ -16,10 +16,11 @@ eval/scorer.py.
 from demo2program_tpu_torch.models.metrics import sequence_metrics
 
 
-def _program_stat(logits, batch):
+def _program_stat(logits, batch, pred_tokens=None):
     gt_onehot = batch["program"].transpose(1, 2).float()  # -> (bs, L, V)
     plen = batch["program_len"][:, 0].long()
-    return sequence_metrics(logits, gt_onehot, plen, plen, "program")
+    return sequence_metrics(logits, gt_onehot, plen, plen, "program",
+                            pred_tokens=pred_tokens)
 
 
 def _per_k_stats(logits, gt_onehot, gt_len, seq_type, pred_len=None):
@@ -54,7 +55,9 @@ def compute_loss(cfg, outputs, batch, model_name):
         report["loss"] = loss
         return loss, report
 
-    prog = _program_stat(outputs["pred_program_logits"], batch)
+    # scheduled sampling reports its sampled ids, not the logits' argmax
+    prog = _program_stat(outputs["pred_program_logits"], batch,
+                         outputs.get("pred_program_tokens"))
     loss = prog["loss"]
     report["program_loss"] = prog["loss"]
     report["program_token_acc"] = prog["token_acc"]
@@ -79,7 +82,7 @@ def compute_loss(cfg, outputs, batch, model_name):
 
 def program_eval_tensors(cfg, outputs, batch):
     """Per-example tensors for the host/VM scorers, for the teacher-forced
-    and the greedy programs (the fetch set of `evaler.py:258-280`); empty
+    and the decoded programs (and the beam set of beam decoding) (the fetch set of `evaler.py:258-280`); empty
     for the induction baseline, which decodes no program. The JAX
     function's pred_per / pred_action_probs feed the trainer's image
     summaries, which are not ported."""
@@ -106,6 +109,9 @@ def program_eval_tensors(cfg, outputs, batch):
         "greedy_program_token_acc": g["token_acc"],
         "greedy_program_seq_acc": g["seq_acc"],
     })
+    for key in ("beam_tokens", "beam_lengths", "beam_scores"):
+        if key in outputs:  # the whole beam set, for execution reranking
+            res[key] = outputs[key]
     return res
 
 

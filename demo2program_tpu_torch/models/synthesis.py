@@ -3,13 +3,22 @@
 Port of demo2program_tpu/models/synthesis.py
 (`models/baselines/model_synthesis.py`): a CNN+LSTM pass over each demo,
 the baseline aggregation of the k final states (avgpool, maxpool or
-concat), and the LSTM program decoder, teacher-forced and greedy. No second
-pass, no action or perception heads.
+concat), and the LSTM program decoder: teacher-forced or, in training with
+a sampling probability, scheduled sampling; decoded greedily, by beam
+search or syntax-constrained (`decode_mode`). No second pass, no action or
+perception heads.
 """
 
+import functools
+
+import torch.nn.functional as F
+
+from demo2program_tpu_torch.dsl.karel_syntax import torch_tables
 from demo2program_tpu_torch.models.common import (
     BaselineAggregation, SinglePassDemoEncoder, check_ported)
 from demo2program_tpu_torch.models.decoder import TokenDecoder
+
+_syntax_tables = functools.cache(torch_tables)
 
 
 class SynthesisModel(BaselineAggregation):
@@ -22,29 +31,73 @@ class SynthesisModel(BaselineAggregation):
             cfg.dim_program_token, cfg.num_lstm_cell_units,
             cfg.program_end_token, cfg.cell_impl)
 
-    def forward(self, batch, include_greedy=True, decode_mode="greedy"):
-        """batch: the expanded batch (ops/reconstruct.py:expand_batch)."""
+    def forward(self, batch, include_greedy=True, decode_mode="greedy",
+                sampling_prob=None, noise=None, decode_noise=None,
+                generator=None):
+        """batch: the expanded batch (ops/reconstruct.py:expand_batch).
+        The keyword arguments are those of `program_outputs`."""
         _, demo_h, demo_c = self.encoder(batch["s_h"],
                                          batch["demo_len"].long())
         summary_h, summary_c = self.aggregate(demo_h, demo_c)
-        out = {"pred_program_logits": self.program_decoder.teacher_forced(
-            summary_c, summary_h, batch["program_tokens"].long())}
-        if include_greedy:
-            out.update(decode_program(self.program_decoder, summary_c,
-                                      summary_h, self.cfg, decode_mode))
-        return out
+        return program_outputs(
+            self.program_decoder, summary_c, summary_h, batch, self.cfg,
+            self.training, include_greedy, decode_mode, sampling_prob, noise,
+            decode_noise, generator)
 
 
-def decode_program(decoder, init_c, init_h, cfg, decode_mode):
-    """The greedy_program_{logits,tokens,len} outputs
-    (demo2program_tpu/models/synthesis.py:_decode_program). Only the greedy
-    branch is ported; beam and syntax-constrained decoding raise."""
-    if decode_mode in ("beam", "syntax_greedy", "syntax_sample"):
-        raise NotImplementedError(f"decode_mode {decode_mode!r} is not "
-                                  f"ported")
-    if decode_mode != "greedy":
+def program_outputs(decoder, init_c, init_h, batch, cfg, training,
+                    include_greedy, decode_mode, sampling_prob, noise,
+                    decode_noise, generator):
+    """The program decoder's outputs, shared by the full, synthesis and
+    summarizer models (demo2program_tpu/models/synthesis.py:36-54):
+    `pred_program_logits`, teacher-forced or, in training with a
+    `sampling_prob`, scheduled sampling with its sampled ids as
+    `pred_program_tokens` (draws `noise`, else from `generator`); with
+    `include_greedy`, the `decode_program` outputs (syntax_sample draws
+    `decode_noise`, else from `generator`)."""
+    gt_tokens = batch["program_tokens"].long()
+    out = {}
+    if sampling_prob is not None and training:
+        out["pred_program_logits"], out["pred_program_tokens"] = \
+            decoder.scheduled(init_c, init_h, gt_tokens, sampling_prob,
+                              noise, generator)
+    else:
+        out["pred_program_logits"] = decoder.teacher_forced(
+            init_c, init_h, gt_tokens)
+    if include_greedy:
+        out.update(decode_program(decoder, init_c, init_h, cfg, decode_mode,
+                                  decode_noise, generator))
+    return out
+
+
+def decode_program(decoder, init_c, init_h, cfg, decode_mode, noise=None,
+                   generator=None):
+    """The greedy_program_{logits,tokens,len} outputs of greedy | beam |
+    syntax_greedy | syntax_sample decoding
+    (demo2program_tpu/models/synthesis.py:_decode_program). Beam search
+    reports one-hot indicator logits of the best beam's tokens (it has no
+    per-step distribution) and the whole beam set as beam_{tokens,
+    lengths,scores}, which execution reranking reads. The syntax modes run
+    the Karel pushdown tables (the port runs Karel only, check_ported)."""
+    out = {}
+    if decode_mode == "greedy":
+        logits, tokens, lengths = decoder.greedy(init_c, init_h,
+                                                 cfg.max_program_len)
+    elif decode_mode == "beam":
+        tokens, lengths, beams = decoder.beam(
+            init_c, init_h, cfg.max_program_len, cfg.beam_width)
+        logits = F.one_hot(tokens.long(), cfg.dim_program_token).float()
+        out = {"beam_tokens": beams["tokens"],      # (bs, K, L)
+               "beam_lengths": beams["lengths"],    # (bs, K)
+               "beam_scores": beams["scores"]}      # (bs, K) log-prob sums
+    elif decode_mode in ("syntax_greedy", "syntax_sample"):
+        logits, tokens, lengths = decoder.greedy_constrained(
+            init_c, init_h, cfg.max_program_len,
+            _syntax_tables(init_c.device),
+            sample=decode_mode == "syntax_sample", noise=noise,
+            generator=generator)
+    else:
         raise ValueError(f"unknown decode_mode {decode_mode!r}")
-    logits, tokens, lengths = decoder.greedy(init_c, init_h,
-                                             cfg.max_program_len)
-    return {"greedy_program_logits": logits,
-            "greedy_program_tokens": tokens, "greedy_program_len": lengths}
+    out.update(greedy_program_logits=logits, greedy_program_tokens=tokens,
+               greedy_program_len=lengths)
+    return out

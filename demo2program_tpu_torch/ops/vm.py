@@ -20,10 +20,10 @@ max_steps.
 import numpy as np
 import torch
 
-from demo2program_tpu.dsl.karel_bytecode import (
+from demo2program_tpu_torch.dsl.karel_bytecode import (
     OP_HALT, OP_BUDGET, OP_INC, OP_ACT, OP_EVAL, OP_NEGC, OP_JMP, OP_JMPF,
     OP_PUSHCTR, OP_JZDEC, MAX_LOOP_DEPTH)
-from demo2program_tpu.dsl.karel_interp import MAX_FUNC_CALL
+from demo2program_tpu_torch.dsl.karel_interp import MAX_FUNC_CALL
 
 _FRONT = np.array([[-1, 0], [0, 1], [1, 0], [0, -1]], dtype=np.int64)
 _LEFT = np.array([[0, -1], [-1, 0], [0, 1], [1, 0]], dtype=np.int64)

@@ -17,7 +17,7 @@ device once, so a step makes no host-to-device copy.
 import numpy as np
 import torch
 
-from demo2program_tpu.utils import log
+from demo2program_tpu_torch.utils import log
 from demo2program_tpu_torch.train.step import to_device
 
 

@@ -3,17 +3,22 @@
 Port of demo2program_tpu/train/step.py: Adam (optax `adam`: b1 0.9, b2
 0.999, eps 1e-8 outside the square root) after clipping by global norm 20
 (optax `clip_by_global_norm`), an optional staircase decay of the learning
-rate (x0.5 every 10k updates, `--lr_weight_decay`), and the eval step with
-greedy decode, for every model family (the objective by model name).
-Scheduled sampling and bf16 compute are not ported.
+rate (x0.5 every 10k updates, `--lr_weight_decay`), scheduled sampling
+(`--scheduled_sampling`: the decoder feeds back its own sample with a
+probability that rises linearly from 0 to 0.9 over the decay steps), and the
+eval step in every program decode mode, for every model family (the
+objective by model name). bf16 compute is not ported.
 
 The train step runs eagerly: forward in train mode (BatchNorm on batch
 statistics, no greedy decoders), the full objective, backward (every LSTM
 step's forward in the CUDA kernel, its backward the plain recomputation,
 ops/fused_lstm.py), clip, Adam. Nothing in it copies to the host: the
-report holds 0-d tensors on the model's device.
+report holds 0-d tensors on the model's device. Scheduled sampling's draws
+in step s come from a generator seeded with a pure function of (seed, s),
+so a resumed run draws what the uninterrupted one drew.
 """
 
+import numpy as np
 import torch
 
 from demo2program_tpu_torch.models import objective
@@ -51,6 +56,25 @@ def learning_rate_at(learning_rate, count, lr_weight_decay=False):
     if not lr_weight_decay:
         return learning_rate
     return learning_rate * DECAY_RATE ** (count // DECAY_STEPS)
+
+
+def sampling_prob(cfg, step):
+    """The probability that scheduled sampling feeds back the sample in
+    update `step` (demo2program_tpu/train/step.py:75-80): 1 - the
+    teacher-forcing probability, which falls linearly from 1.0 to 0.1 over
+    scheduled_sampling_decay_steps. Computed in float32, as JAX does."""
+    one = np.float32(1.0)
+    frac = min(np.float32(step) / np.float32(
+        cfg.scheduled_sampling_decay_steps), one)
+    return float(one - (one + np.float32(0.1 - 1.0) * frac))
+
+
+def step_generator(seed, step, device):
+    """A generator on `device` whose draws are a pure function of (seed,
+    step): the randomness of train step `step`."""
+    mixed = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        int(mixed[0]) << 32 | int(mixed[1]))
 
 
 def global_norm(tensors):
@@ -107,22 +131,35 @@ class TrainState:
         self.optimizer.load_state_dict(state["optimizer"])
 
 
-def forward_loss(model, cfg, batch, model_name):
+def forward_loss(model, cfg, batch, model_name, **kwargs):
     """Train-mode forward of a compact or expanded batch (dict of tensors on
-    the model's device) -> (loss, report) of `model_name`'s objective."""
+    the model's device) -> (loss, report) of `model_name`'s objective.
+    `kwargs` go to the model (scheduled sampling's sampling_prob, noise,
+    generator)."""
     model.train()
     batch = expand_batch(strip_non_tensor(batch), cfg)
-    out = model(batch, include_greedy=False)
+    out = model(batch, include_greedy=False, **kwargs)
     return objective.compute_loss(cfg, out, batch, model_name)
 
 
-def make_train_step(state, cfg, model_name):
-    """-> train_step(batch) -> report: one update of `state`. The report
-    has the objective's scalars and `grad_norm`, the global norm of the
-    unclipped gradients (demo2program_tpu/train/step.py:129)."""
+def make_train_step(state, cfg, model_name, seed=0):
+    """-> train_step(batch, noise=None) -> report: one update of `state`.
+    The report has the objective's scalars and `grad_norm`, the global norm
+    of the unclipped gradients (demo2program_tpu/train/step.py:129). With
+    cfg.scheduled_sampling the program decoder samples at
+    sampling_prob(cfg, state.step), drawing `noise` (the decoder's
+    (Gumbel, uniform) pair) or, without it, from step_generator(seed,
+    state.step)."""
 
-    def train_step(batch):
-        loss, report = forward_loss(state.model, cfg, batch, model_name)
+    def train_step(batch, noise=None):
+        kwargs = {}
+        if cfg.scheduled_sampling:
+            device = next(state.model.parameters()).device
+            kwargs = dict(sampling_prob=sampling_prob(cfg, state.step),
+                          noise=noise, generator=step_generator(
+                              seed, state.step, device))
+        loss, report = forward_loss(state.model, cfg, batch, model_name,
+                                    **kwargs)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         report["grad_norm"] = state.apply_gradients()
@@ -131,17 +168,26 @@ def make_train_step(state, cfg, model_name):
     return train_step
 
 
-def make_eval_step(model, cfg, model_name):
+def make_eval_step(model, cfg, model_name, decode_mode="greedy",
+                   decode_seed=123):
     """Eval forward: loss/acc reports + program tensors for host/VM scoring
     (none for the induction baseline), with running batch-norm statistics.
-    Returns eval_step(batch) -> (report, evals), batch being a dict of
-    tensors on the model's device."""
+    `decode_mode` is greedy | beam | syntax_greedy | syntax_sample; the
+    samples of syntax_sample come from a generator seeded with
+    `decode_seed` at every call, as the JAX step draws from one fixed key
+    (demo2program_tpu/train/step.py:198-233). Returns eval_step(batch) ->
+    (report, evals), batch being a dict of tensors on the model's device."""
+    kwargs = {} if decode_mode == "greedy" else {"decode_mode": decode_mode}
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
         batch = expand_batch(strip_non_tensor(batch), cfg)
-        out = model(batch)
+        if decode_mode == "syntax_sample":
+            device = next(model.parameters()).device
+            kwargs["generator"] = torch.Generator(
+                device=device).manual_seed(decode_seed)
+        out = model(batch, **kwargs)
         _, report = objective.compute_loss(cfg, out, batch, model_name)
         report.update(objective.greedy_action_report(cfg, out, batch,
                                                      model_name))

@@ -27,9 +27,11 @@ numbers); the batch order follows the same rule with numpy's generator, not
 jax.random (train/device_cache.py); checkpoints are torch files
 (train/checkpoint.py). The induction baseline trains on the test demos'
 actions, so its device cache keeps the `test_*` arrays, and its test-sample
-evals write no program samples, as in the JAX trainer. Not ported: the
-streaming BatchPipeline path, ViZDoom, scheduled sampling, bf16 compute,
-`--sample_images` and `--profile_steps`.
+evals write no program samples, as in the JAX trainer. With
+`--scheduled_sampling` the draws of step s are a pure function of (seed, s)
+(train/step.py:step_generator), so exact resume still holds. Not ported:
+the streaming BatchPipeline path, ViZDoom, bf16 compute, `--sample_images`
+and `--profile_steps`.
 """
 
 import json
@@ -39,8 +41,7 @@ import time
 import numpy as np
 import torch
 
-from demo2program_tpu.dsl.karel_vocab import KarelVocab
-from demo2program_tpu.utils import log
+from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
 from demo2program_tpu_torch.eval.evaler import config_from_dataset
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
@@ -48,6 +49,7 @@ from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
 from demo2program_tpu_torch.train.step import (
     TrainState, make_eval_step, make_train_step, resolve_device, to_device)
+from demo2program_tpu_torch.utils import log
 
 
 class Trainer:
@@ -79,7 +81,8 @@ class Trainer:
         self.model = model.to(self.device)
         self.state = TrainState(self.model, args.learning_rate,
                                 args.lr_weight_decay)
-        self.train_step = make_train_step(self.state, cfg, args.model)
+        self.train_step = make_train_step(self.state, cfg, args.model,
+                                          seed=args.seed)
         self.eval_step = make_eval_step(self.model, cfg, args.model)
         self.cache = KarelDeviceCache(
             dataset_train, self.device, args.batch_size, args.seed,

@@ -29,7 +29,7 @@ from demo2program_tpu_torch.models.induction import InductionModel
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
 from tests.test_torch_models import (
-    count_lstm_steps, family_batch, family_forward_parity)
+    _tensors, count_lstm_steps, family_batch, family_forward_parity)
 from tests.test_torch_train import (
     N_STEPS, SPLIT, check_params_and_bn_statistics,
     check_reports_and_gradients, run_train_parity)
@@ -86,12 +86,28 @@ def test_lstm_steps_per_forward(monkeypatch, variant, seen_steps,
 
 
 @pytest.mark.parametrize("what,field,value", [
-    ("scheduled", "scheduled_sampling", True),
     ("compute_dtype", "compute_dtype", "bfloat16"),
     ("vizdoom", "dataset_type", "vizdoom")])
 def test_unported_options_raise(what, field, value):
     with pytest.raises(NotImplementedError, match=what):
         InductionModel(_cfg(**{field: value}))
+
+
+def test_scheduled_sampling_is_ignored():
+    """The induction baseline decodes no program: scheduled sampling is
+    accepted and changes nothing, as in the JAX module
+    (demo2program_tpu/models/induction.py:159-160). A train forward of a
+    scheduled-sampling config matches JAX's, and the port's outputs with
+    a sampling probability and draws equal those without."""
+    model = family_forward_parity(MODEL, train=True, scheduled_sampling=True)
+    batch = _tensors(family_batch(model.cfg))
+    with torch.no_grad():
+        want = model.train()(batch, include_greedy=False)
+        got = model.train()(batch, include_greedy=False, sampling_prob=1.0,
+                            generator=torch.Generator().manual_seed(1))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_init_parameters_draws_every_parameter_from_the_seed():

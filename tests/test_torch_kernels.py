@@ -21,7 +21,7 @@ from demo2program_tpu_torch.ops.fused_lstm import (
 # in another order than cuBLAS's f32 GEMM; bf16: one rounding of the stored
 # result (2^-8 relative).
 ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
-BATCHES = (1, 20, 32, 33, 64, 200, 320)
+BATCHES = (1, 20, 32, 33, 64, 160, 200, 320)
 # (D, H): the encoder's first pass, the 512-wide layers, and shapes whose
 # rows are not 16-byte aligned (13, 100) or narrower than one block (64)
 WIDTHS = ((48, 512), (512, 512), (13, 100), (48, 64))
@@ -29,6 +29,8 @@ WIDTHS = ((48, 512), (512, 512), (13, 100), (48, 64))
 # encoder's input (48 CNN features + 5 percepts) at B = bs * k, and its
 # attention decoder's [embedding, attention] at B = bs * test_k
 BASELINE_SHAPES = [(320, 53), (160, 1024)]
+# (B, D) of beam search's program decoder: K = 5 beams of bs = 32 rows
+BEAM_SHAPES = [(160, 512)]
 
 
 @pytest.fixture
@@ -109,7 +111,7 @@ def test_kernel_takes_unaligned_tensors(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,D", [(32, 512), (320, 48), (320, 512)]
-                         + BASELINE_SHAPES)
+                         + BEAM_SHAPES + BASELINE_SHAPES)
 def test_scan_matches_plain(cuda, B, D, dtype):
     """20 steps, each fed the kernel's own (h, c), against the plain version
     fed its own. Weights are glorot-uniform as in the model, so the cell
@@ -253,7 +255,7 @@ def _tf32(a):
 
 
 @pytest.mark.parametrize("B,D", [(32, 48), (320, 48), (32, 512), (320, 512)]
-                         + BASELINE_SHAPES)
+                         + BEAM_SHAPES + BASELINE_SHAPES)
 def test_f32_tolerance_rejects_single_pass_tf32(B, D):
     """The f32 tolerance tells the 3xTF32 split from one TF32 pass at every
     model shape, with glorot weights and N(0, 1) activations as in

@@ -16,8 +16,10 @@ from __graft_entry__ import _tiny_cfg
 from demo2program_tpu_torch.data.karel_memory import generate_split
 from demo2program_tpu_torch.models.common import ModelConfig
 from demo2program_tpu_torch.models.synthesis import SynthesisModel
+from tests.test_torch_decode import (
+    decode_forward_parity, scheduled_forward_parity)
 from tests.test_torch_models import (
-    _tensors, count_lstm_steps, family_batch, family_forward_parity)
+    count_lstm_steps, family_batch, family_forward_parity)
 from tests.test_torch_train import (
     N_STEPS, SPLIT, check_params_and_bn_statistics,
     check_reports_and_gradients, run_train_parity)
@@ -55,7 +57,6 @@ def test_lstm_steps_per_forward(monkeypatch):
 
 
 @pytest.mark.parametrize("what,field,value", [
-    ("scheduled", "scheduled_sampling", True),
     ("compute_dtype", "compute_dtype", "bfloat16"),
     ("vizdoom", "dataset_type", "vizdoom")])
 def test_unported_options_raise(what, field, value):
@@ -64,14 +65,19 @@ def test_unported_options_raise(what, field, value):
         SynthesisModel(ModelConfig(**dataclasses.asdict(cfg)))
 
 
-def test_non_greedy_decode_raises():
-    cfg = ModelConfig(**dataclasses.asdict(
-        dataclasses.replace(_tiny_cfg(), model=MODEL)))
-    model = SynthesisModel(cfg).eval()
-    batch = _tensors(family_batch(cfg))
-    for mode in ("beam", "syntax_greedy", "syntax_sample"):
-        with pytest.raises(NotImplementedError, match=mode):
-            model(batch, decode_mode=mode)
+@pytest.mark.parametrize("mode", ["beam", "syntax_greedy", "syntax_sample"])
+def test_decode_modes_match_jax(mode, monkeypatch):
+    """Beam, syntax-constrained greedy and syntax_sample (on JAX's draws)
+    decoding through the model vs the JAX module
+    (tests/test_torch_decode.py:decode_forward_parity)."""
+    decode_forward_parity(MODEL, mode, monkeypatch)
+
+
+@pytest.mark.parametrize("p", [0.5, 1.0])
+def test_scheduled_sampling_matches_jax(p):
+    """A train forward with scheduled sampling on JAX's draws: the sampled
+    ids exact (tests/test_torch_decode.py:scheduled_forward_parity)."""
+    scheduled_forward_parity(MODEL, p)
 
 
 @pytest.fixture(scope="module")

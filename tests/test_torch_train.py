@@ -8,8 +8,10 @@ only reorders, and Adam is elementwise).
 
 Covered: the LSTM step's autograd Function against jax.grad through the
 Pallas step; train-mode BatchNorm against flax's; global-norm clipping and
-the staircase schedule against optax; and the whole jitted JAX train step
-(`make_step_fn`) against the port's over 1 and 3 steps.
+the staircase schedule against optax; the scheduled-sampling probability;
+and the whole jitted JAX train step (`make_step_fn`) against the port's
+over 1 and 3 steps, with and without scheduled sampling (on the JAX step's
+own draws, tests/test_torch_decode.py:scheduled_noise).
 """
 
 import dataclasses
@@ -29,7 +31,7 @@ from demo2program_tpu.models.registry import (
 from demo2program_tpu.ops import pallas_lstm
 from demo2program_tpu.ops.reconstruct import expand_batch as jax_expand
 from demo2program_tpu.train.step import (
-    create_train_state, make_optimizer, make_step_fn)
+    _sampling_prob, create_train_state, make_optimizer, make_step_fn)
 from demo2program_tpu_torch.cli import trainer_cli
 from demo2program_tpu_torch.data.karel_memory import (
     SplitConfig, generate_split)
@@ -43,7 +45,8 @@ from demo2program_tpu_torch.ops.fused_lstm import fused_lstm_step
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.train.step import (
     TrainState, clip_by_global_norm_, global_norm, learning_rate_at,
-    make_train_step, to_device)
+    make_train_step, sampling_prob, to_device)
+from tests.test_torch_decode import scheduled_noise
 
 BS, N_STEPS, LR, ADAM_EPS = 4, 3, 1e-3, 1e-8
 SPLIT = SplitConfig(num_programs=BS * N_STEPS, seed=5, k=3, test_k=2,
@@ -191,6 +194,15 @@ def test_staircase_schedule_matches_optax(count):
     assert state.step == count + 1
 
 
+@pytest.mark.parametrize("step", [0, 1, 7, 10, 20, 35])
+def test_sampling_prob_matches_jax(step):
+    """1 - (1 + (0.1 - 1) * min(step / decay, 1)) in float32, as the JAX
+    step computes it from its step counter (decay 20 here)."""
+    cfg = JaxConfig(scheduled_sampling_decay_steps=20)
+    want = float(_sampling_prob(cfg, jnp.asarray(step, jnp.int32)))
+    assert sampling_prob(cfg, step) == want
+
+
 # -- the train step ------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -221,13 +233,16 @@ def _random_stats(tree, seed=0):
     return jax.tree_util.tree_map_with_path(draw, tree)
 
 
-def run_train_parity(split, model_name, cell_impl, overrides=None):
+def run_train_parity(split, model_name, cell_impl, overrides=None,
+                     start_step=0):
     """N_STEPS steps of the jitted JAX `make_step_fn` and of the port's
     train step of `model_name` from the same variables (JAX's initializers,
     random BN running statistics) on the same batches; `overrides` replace
-    config fields that have no flag. -> dict with the JAX gradients of step
-    1 and, per step, both reports, the port's gradients and both
-    state_dicts."""
+    config fields that have no flag. Both step counters start at
+    `start_step` (it sets the scheduled-sampling probability; Adam keeps
+    its own count). With scheduled sampling the port draws what the JAX
+    step draws from its key. -> dict with the JAX gradients of step 1 and,
+    per step, both reports, the port's gradients and both state_dicts."""
     args = trainer_cli.parse_args([
         "--device", "cpu", "--model", model_name, "--num_k", str(SPLIT.k),
         "--batch_size", str(BS), "--num_lstm_cell_units", "32",
@@ -241,13 +256,18 @@ def run_train_parity(split, model_name, cell_impl, overrides=None):
         split, include_test=model_name == "induction_baseline")
     state = jax.jit(lambda b: create_train_state(
         jmodel, jcfg, tx, jax.random.key(0), b))(batches[0])
-    state = state.replace(batch_stats=_random_stats(state.batch_stats))
+    state = state.replace(batch_stats=_random_stats(state.batch_stats),
+                          step=jnp.asarray(start_step, jnp.int32))
+    key = jax.random.key(1)
+    ss = {}
+    if cfg.scheduled_sampling:
+        ss = dict(sampling_prob=_sampling_prob(jcfg, state.step), rng=key)
 
     def loss_fn(params, batch):
         b = jax_expand(batch, jcfg)
         out, _ = jmodel.apply(
             {"params": params, "batch_stats": state.batch_stats}, b,
-            mutable=["batch_stats"], include_greedy=False)
+            mutable=["batch_stats"], include_greedy=False, **ss)
         return jax_objective.compute_loss(jcfg, out, b, model_name)[0]
 
     grads_j = flax_to_state_dict(
@@ -259,7 +279,12 @@ def run_train_parity(split, model_name, cell_impl, overrides=None):
     model.load_state_dict(flax_to_state_dict(state.params,
                                              state.batch_stats))
     train_state = TrainState(model, LR)
+    train_state.step = start_step
     step_t = make_train_step(train_state, cfg, model_name)
+    noise = None
+    if cfg.scheduled_sampling:
+        noise = tuple(torch.from_numpy(n) for n in scheduled_noise(
+            key, cfg.max_program_len, BS, cfg.dim_program_token))
     resync = PER_EMBED_BIAS in dict(model.named_parameters())
     steps = []
     for batch in batches:
@@ -273,8 +298,8 @@ def run_train_parity(split, model_name, cell_impl, overrides=None):
             with torch.no_grad():
                 model.get_parameter(PER_EMBED_BIAS).copy_(flax_to_state_dict(
                     state.params, state.batch_stats)[PER_EMBED_BIAS])
-        state, rep_j = step_j(state, batch, jax.random.key(1))
-        rep_t = step_t(to_device(batch, "cpu"))
+        state, rep_j = step_j(state, batch, key)
+        rep_t = step_t(to_device(batch, "cpu"), noise=noise)
         steps.append({
             "rep_j": jax.device_get(rep_j), "rep_t": rep_t,
             "grads_t": {n: p.grad.clone()
@@ -282,7 +307,7 @@ def run_train_parity(split, model_name, cell_impl, overrides=None):
             "sd_j": flax_to_state_dict(jax.device_get(state.params),
                                        jax.device_get(state.batch_stats)),
             "sd_t": {k: v.clone() for k, v in model.state_dict().items()}})
-    assert train_state.step == N_STEPS
+    assert train_state.step == start_step + N_STEPS
     return {"grads_j": grads_j, "steps": steps,
             "params": [n for n, _ in model.named_parameters()]}
 
@@ -352,9 +377,31 @@ def test_params_and_bn_statistics_match_jax(train_runs, n_steps):
     check_params_and_bn_statistics(train_runs, n_steps)
 
 
+@pytest.fixture(scope="module", params=["pallas", "xla"])
+def scheduled_runs(request, split):
+    """Scheduled sampling over steps 1-3 of a 2-step decay: sampling
+    probabilities 0.45, 0.9, 0.9 (step 0's is 0, teacher forcing)."""
+    return run_train_parity(
+        split, "full", request.param,
+        {"scheduled_sampling": True, "scheduled_sampling_decay_steps": 2},
+        start_step=1)
+
+
+def test_scheduled_sampling_reports_and_gradients_match_jax(scheduled_runs):
+    """The report (token accuracies from the sampled ids), grad_norm and
+    step 1's gradients, within the bounds of the teacher-forced check."""
+    check_reports_and_gradients(scheduled_runs)
+
+
+@pytest.mark.parametrize("n_steps", [1, N_STEPS])
+def test_scheduled_sampling_params_match_jax(scheduled_runs, n_steps):
+    check_params_and_bn_statistics(scheduled_runs, n_steps)
+
+
 def test_train_mode_model_skips_greedy(split, monkeypatch):
     """include_greedy=False leaves out both greedy decoders: 4T + L LSTM
-    steps instead of 5T + 2L. Scheduled sampling is refused."""
+    steps instead of 5T + 2L. Scheduled sampling takes the same steps and
+    reports its sampled ids."""
     args = trainer_cli.parse_args(["--device", "cpu", "--num_k", "3",
                                    "--num_lstm_cell_units", "16"])
     cfg = config_from_dataset(args, split)
@@ -375,5 +422,9 @@ def test_train_mode_model_skips_greedy(split, monkeypatch):
             out = model.train()(batch, include_greedy=include_greedy)
         assert len(calls) == want
         assert ("greedy_program_tokens" in out) == include_greedy
-    with pytest.raises(NotImplementedError, match="scheduled"):
-        FullModel(dataclasses.replace(cfg, scheduled_sampling=True))
+    calls.clear()
+    with torch.no_grad():
+        out = model.train()(batch, include_greedy=False, sampling_prob=0.5,
+                            generator=torch.Generator().manual_seed(0))
+    assert len(calls) == 4 * T + L
+    assert out["pred_program_tokens"].shape == (2, L)

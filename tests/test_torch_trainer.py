@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from demo2program_tpu.utils import log
 from demo2program_tpu_torch.cli import evaler_cli, trainer_cli
 from demo2program_tpu_torch.data.karel_memory import (
     SplitConfig, generate_split)
@@ -19,6 +18,7 @@ from demo2program_tpu_torch.eval.evaler import Evaler
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
 from demo2program_tpu_torch.train.trainer import Trainer
+from demo2program_tpu_torch.utils import log
 
 BS, STEPS = 4, 4
 SPLIT = SplitConfig(num_programs=10, seed=11, k=3, test_k=2,
@@ -145,6 +145,32 @@ def test_exact_resume_is_bitwise(split, trained, tmp_path):
             assert torch.equal(opt_got[i][k], opt_want[i][k]), (i, k)
 
 
+def test_exact_resume_is_bitwise_with_scheduled_sampling(split, trained,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """With --scheduled_sampling the draws of step s are a pure function of
+    (seed, s): 2 steps and an auto-resume to 4 == 4 uninterrupted steps,
+    bitwise; and the samples were used (the parameters differ from the
+    teacher-forced run's)."""
+    flags = ("--scheduled_sampling", "--scheduled_sampling_decay_steps", "2")
+    whole = _run(split, tmp_path / "whole", STEPS, *flags)
+    first = _run(split, tmp_path / "parts", 2, *flags)
+    with open(os.path.join(first.train_dir, "resume.json"), "w") as f:
+        json.dump({"target_step": STEPS}, f)
+    resumed = Trainer(_args(tmp_path / "parts", *flags), split, split,
+                      device="cpu")
+    assert resumed._auto_resumed and resumed.state.step == 2
+    resumed.train(max_steps=STEPS)
+    want, got = whole.model.state_dict(), resumed.model.state_dict()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    teacher_forced = trained.model.state_dict()
+    assert any(not torch.equal(want[k], teacher_forced[k]) for k in want)
+    monkeypatch.chdir(tmp_path)  # a run without --train_dir names its own
+    assert "_sd_2_" in Trainer(_args("", *flags), split, split,
+                               device="cpu").train_dir
+
+
 def test_relaunch_has_nothing_to_do(split, trained, log_records):
     before = dict(trained.model.state_dict())
     again = Trainer(_args(trained.train_dir), split, split, device="cpu")
@@ -196,8 +222,7 @@ def test_evaler_reads_trainer_checkpoints(split, trained):
 
 
 def test_unported_options_raise(split, tmp_path):
-    for extra, what in ((["--scheduled_sampling"], "scheduled"),
-                        (["--sample_images"], "sample_images"),
+    for extra, what in ((["--sample_images"], "sample_images"),
                         (["--profile_steps", "3"], "profile_steps")):
         with pytest.raises(NotImplementedError, match=what):
             Trainer(_args(tmp_path, *extra), split, split, device="cpu")
@@ -223,13 +248,14 @@ def test_cuda_without_a_card_raises(split, tmp_path, monkeypatch):
         evaler_cli.main(["--dataset_path", missing])
 
 
-def drive_clis(model_name, split, tmp_path, monkeypatch, records):
+def drive_clis(model_name, split, tmp_path, monkeypatch, records,
+               eval_flags=()):
     """`trainer_cli.main` for 2 steps, its relaunch (which must log
-    "Nothing to do"), then `evaler_cli.main` on the newest checkpoint, all
-    with --device cpu --model `model_name`; the dataset reader serves the
-    in-memory `split` as every split. -> (train_dir, {section: {metric:
+    "Nothing to do"), then `evaler_cli.main` on the newest checkpoint with
+    `eval_flags`, all with --device cpu --model `model_name`; the port's
+    dataset reader serves the in-memory `split` as every split. -> (train_dir, {section: {metric:
     value}} of the evaler's final report, "Loss" and "Acc")."""
-    from demo2program_tpu.data import dataset
+    from demo2program_tpu_torch.data import dataset
 
     monkeypatch.setattr(dataset, "create_default_splits",
                         lambda *a, **kw: (split, split, split))
@@ -246,7 +272,8 @@ def drive_clis(model_name, split, tmp_path, monkeypatch, records):
     trainer_cli.main(argv)
     assert any("Nothing to do" in r.getMessage() for r in records)
     evaler_cli.main(common + ["--train_dir", train_dir, "--max_steps", "1",
-                              "--quiet", "--summary_file", summary])
+                              "--quiet", "--summary_file", summary,
+                              *eval_flags])
     text = open(summary).read()
     assert f"Model class: {model_name}" in text
     report = {}
