@@ -12,15 +12,16 @@ without them. It:
      and spills for every kernel instance, and checks that none spills;
   3. kernel phase: holds the kernel against its plain PyTorch version on the
      card at every shape of the full model's path (D in {48, 512},
-     H = 512, B in {32, 320}), at beam search's (160, 512) and at the two
+     H = 512, B in {32, 320}), at beam search's (160, 512), at the two
      only the induction baseline runs ((B, D) = (320, 53) and (160,
-     1024)), f32 and bf16, prints each
-     launch's grid, block count and load path (`vec`: 16-byte async copies
-     or plain loads), and times both versions three ways: back-to-back
-     calls from Python (host-paced, `ms`), 50 calls captured in a CUDA
-     graph and replayed (device time, `device_ms`), and the host's own time
-     per call (`host_us`); times torch.lstm_cell the same way
-     (`library_device_ms`) and computes the bound (`bound_ms`);
+     1024)) and at ViZDoom's (800, 432) and (800, 512) (bs 32 x k 25 rows;
+     432 = the 5-conv encoder's 3 x 3 x 48 features), f32 and bf16, prints
+     each launch's grid, block count and load path (`vec`: 16-byte async
+     copies or plain loads), and times both versions three ways:
+     back-to-back calls from Python (host-paced, `ms`), 50 calls captured
+     in a CUDA graph and replayed (device time, `device_ms`), and the
+     host's own time per call (`host_us`); times torch.lstm_cell the same
+     way (`library_device_ms`) and computes the bound (`bound_ms`);
   4. slice phase: makes a seeded in-memory Karel split (k=10, test_k=5,
      T=20, L=45), saves a random-init FullModel at 512 units as a .pt,
      evaluates 3 batches of 32 through the port's Evaler with
@@ -67,7 +68,28 @@ without them. It:
      launches (10 x 125 + 190), a finite loss, and one step's gradients on
      the card vs the CPU on the same injected draws (drawn from the first
      seed whose sampled choices are none within 1e-3 of a tie);
-  9. prints one JSON line describing the kernel: its time, the plain
+  9. resume phase (Karel): in deterministic mode (train/step.py:
+     deterministic_cuda, which the Trainer requires on the card), two
+     6-step runs from one seed and a run stopped at step 3 and resumed by
+     a new Trainer must save equal checkpoints bit for bit; a fourth run
+     with deterministic algorithms off for its steps gives the mode's cost
+     in s/step, and eval s/batch is timed in both modes;
+ 10. ViZDoom phase: generates an in-memory split in 8 shards over a
+     process pool (data/vizdoom_memory.py: 80x80x3 DoomLite frames, demos
+     of 2-8 frames, programs of at most 32 tokens, 25 seen and 10 unseen
+     demos a program; 64 distinct programs train, 32 evaluate), trains
+     the full model 20 steps through the Trainer (units 512, bs 32, k 25;
+     exact launches 20 x (4T + L) + (5T + 2L), a falling loss, gradients
+     card vs CPU and kernel vs plain), evaluates the checkpoint greedily
+     (launches at (800, 432), (800, 512) and (32, 512) by forward hooks,
+     card vs CPU forward, K = 1 beam = greedy) and by beam K = 5 with
+     execution rerank over the 25 stored seen demos while the model reads
+     20 (--rerank_k); scores the ground-truth programs in the engine
+     (execution 1.0 on seen and unseen demos); repeats the resume phase on
+     ViZDoom, with a profile of a train step's device time per kernel in
+     each mode; and warm-starts a new bs 8 run from a bs 32 run's
+     checkpoint (`--checkpoint`, a new device cache), as a user does;
+ 11. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
      or by operations) at every shape, with every path's launches, then
@@ -75,6 +97,8 @@ without them. It:
 
 Any failed check raises, so the script exits non-zero and prints no result.
 TF32 is off throughout: every comparison is against f32 references.
+Deterministic algorithms are on throughout (off only where the resume
+phase times the default mode), as the entry points run them.
 """
 
 import contextlib
@@ -96,8 +120,11 @@ from demo2program_tpu_torch.cli import trainer_cli
 from demo2program_tpu_torch.cli.evaler_cli import parse_args
 from demo2program_tpu_torch.data.karel_memory import (
     SplitConfig, generate_split)
+from demo2program_tpu_torch.data import vizdoom_memory
+from demo2program_tpu_torch.data.vizdoom_generator import (
+    VizdoomGeneratorConfig)
 from demo2program_tpu_torch.eval.evaler import (
-    Evaler, config_from_dataset, save_checkpoint)
+    Evaler, config_from_dataset, fetch_batch, save_checkpoint)
 from demo2program_tpu_torch.models import objective
 from demo2program_tpu_torch.models.decoder import scheduled_noise
 from demo2program_tpu_torch.models.full import FullModel
@@ -107,11 +134,12 @@ from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.step import (
-    forward_loss, global_norm, sampling_prob, to_device)
+    deterministic_cuda, forward_loss, global_norm, sampling_prob, to_device)
 from demo2program_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # of every phase's entry points
+CARD = ""  # nvidia-smi's "name, power.limit", set by main
 OUT_DIR = os.path.join(ROOT, "build", "smoke")
 SEED = 1234
 UNITS = 512
@@ -131,6 +159,11 @@ BASELINE_SHAPES = [(320, 53), (160, 1024)]
 # runs at B = bs * K
 BEAM_WIDTH = 5
 BEAM_SHAPES = [(BATCH * BEAM_WIDTH, 512)]
+# ViZDoom's full model at k = 25: the encoder's first pass reads the 5-conv
+# features of 80x80 frames (3 * 3 * 48 = 432) at B = bs * k = 800, its
+# second pass and the action and perception decoders run at (800, 512)
+VZD_K, VZD_TEST_K = 25, 10
+VIZDOOM_SHAPES = [(BATCH * VZD_K, 432), (BATCH * VZD_K, 512)]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s, and FLOP/s of the tensor cores' TF32 and bf16 products. The
 # f32 kernel takes three TF32 products per f32 product (3xTF32 split).
@@ -161,6 +194,16 @@ DECODE_MODES = ("beam", "syntax_greedy", "syntax_sample")
 # (the model's logits differ by about 1e-6 between the two, PERF.md)
 SCORE_ATOL, TIE_GAP = 1e-3, 1e-4
 SS_STEPS, SS_LOG_STEP, SS_DECAY = 10, 5, 20
+# exact resume: runs of RESUME_STEPS steps, one stopped halfway
+RESUME_STEPS = 6
+PROFILE_STEPS = 3  # profiled ViZDoom train steps in each mode
+# the ViZDoom split: VZD_SHARDS generator runs of VZD_PER_SHARD programs
+# each (seeds SEED, SEED + 1, ...), of which the first VZD_TRAIN distinct
+# programs train and the next VZD_TEST evaluate
+VZD_SHARDS, VZD_PER_SHARD = 8, 16
+VZD_TRAIN, VZD_TEST = 64, 32
+VZD_STEPS, VZD_LOG_STEP, VZD_EVAL_BATCHES = 20, 10, 1
+VZD_STAGE_STEPS, VZD_STAGE2_BATCH = 4, 8
 
 
 def check(cond, msg):
@@ -262,7 +305,8 @@ def kernel_phase():
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
-        for B, D in KERNEL_SHAPES + BEAM_SHAPES + BASELINE_SHAPES:
+        for B, D in (KERNEL_SHAPES + BEAM_SHAPES + BASELINE_SHAPES
+                     + VIZDOOM_SHAPES):
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=g, device=dev)
                         * scale).to(dtype)
@@ -380,7 +424,7 @@ def reference_agreement(model, cfg, split, n=4):
     the teacher-forced program logits."""
     cpu_model = FullModel(cfg)
     cpu_model.load_state_dict(model.state_dict())
-    raw = split.get_batch_compact(split.ids[:n])
+    raw = fetch_batch(split, split.ids[:n], cfg.dataset_type)
     rep_k, lg_k = _eval_forward(model, cfg, raw,
                                 next(model.parameters()).device)
     rep_r, lg_r = _eval_forward(cpu_model.eval(), cfg, raw,
@@ -557,26 +601,42 @@ def scheduled_kwargs(cpu_model, cfg, batch, step):
     raise RuntimeError("no draws without a sampled choice near a tie")
 
 
+def trainer_args(train_dir, steps, log_step, model_name="full",
+                 dataset_type="karel", num_k=None, batch_size=None,
+                 test_sample_step=None, extra_flags=()):
+    """trainer_cli's args of a run on the card at full width (num_k:
+    SPLIT's, batch size: BATCH)."""
+    num_k = num_k or SPLIT.k
+    batch_size = batch_size or BATCH
+    return trainer_cli.parse_args([
+        "--device", DEVICE, "--model", model_name,
+        "--dataset_type", dataset_type, "--dataset_path", "in-memory",
+        "--train_dir", train_dir, "--num_k", str(num_k),
+        "--batch_size", str(batch_size),
+        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
+        "--seed", str(SEED), "--max_steps", str(steps),
+        "--log_step", str(log_step),
+        "--test_sample_step", str(test_sample_step or steps),
+        "--ckpt_save_step", str(steps), *extra_flags])
+
+
 def train_phase(split, model_name="full", steps=TRAIN_STEPS,
                 log_step=TRAIN_LOG_STEP, compare_plain=True,
                 time_steps=True, name=None, extra_flags=(),
-                check_falling=True):
-    """Train `model_name` through the Trainer (with `extra_flags`), check
-    launches, loss and one step's gradients, evaluate the checkpoint
-    through the Evaler."""
+                check_falling=True, dataset_type="karel", num_k=None,
+                test_split=None, eval_batches=N_BATCHES):
+    """Train `model_name` through the Trainer (with `extra_flags`) on
+    `split`, check launches, loss and one step's gradients, evaluate the
+    checkpoint through the Evaler on `test_split` (default `split`)."""
     name = name or model_name
     tag = "train" if name == "full" else name
+    num_k = num_k or SPLIT.k
+    test_split = test_split or split
     train_dir = os.path.join(OUT_DIR, "train_" + name)
     shutil.rmtree(train_dir, ignore_errors=True)
-    args = trainer_cli.parse_args([
-        "--device", DEVICE, "--model", model_name,
-        "--dataset_path", "in-memory", "--train_dir", train_dir,
-        "--num_k", str(SPLIT.k), "--batch_size", str(BATCH),
-        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
-        "--seed", str(SEED), "--max_steps", str(steps),
-        "--log_step", str(log_step), "--test_sample_step", str(steps),
-        "--ckpt_save_step", str(steps), *extra_flags])
-    trainer = Trainer(args, split, split, device=args.device)
+    args = trainer_args(train_dir, steps, log_step, model_name, dataset_type,
+                        num_k, extra_flags=extra_flags)
+    trainer = Trainer(args, split, test_split, device=args.device)
     cfg = trainer.cfg
     per_step, per_sample = lstm_launches(cfg)
     losses = []
@@ -615,7 +675,7 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
           f"{model_name}: newest checkpoint {ckpt}")
 
     # one step from the trained weights: card vs CPU, kernel vs plain
-    batch = split.get_batch_compact(split.ids[:GRAD_ITEMS])
+    batch = fetch_batch(split, split.ids[:GRAD_ITEMS], dataset_type)
     card = to_device(batch, trainer.device)
     cpu_model = get_model_class(model_name)(cfg)
     cpu_model.load_state_dict(trainer.model.state_dict())
@@ -636,21 +696,22 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
                                  plain)
 
     eval_args = parse_args([
-        "--model", model_name, "--dataset_path", "in-memory",
-        "--checkpoint", ckpt, "--num_k", str(SPLIT.k),
-        "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
-        "--cell_impl", "pallas", "--max_steps", str(N_BATCHES), "--quiet",
-        "--no_write_summary", "--device", DEVICE])
-    evaler = Evaler(eval_args, split, device=eval_args.device)
+        "--model", model_name, "--dataset_type", dataset_type,
+        "--dataset_path", "in-memory", "--checkpoint", ckpt,
+        "--num_k", str(num_k), "--batch_size", str(BATCH),
+        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
+        "--max_steps", str(eval_batches), "--quiet", "--no_write_summary",
+        "--device", DEVICE])
+    evaler = Evaler(eval_args, test_split, device=eval_args.device)
     for name, t in trainer.model.state_dict().items():
         check(torch.equal(evaler.model.state_dict()[name], t),
               f"the Evaler's {name} is not the trained one")
     fused_lstm.fused_lstm_step.launches = 0
     loss, acc, hist = evaler.eval_run()
     eval_launches = fused_lstm.fused_lstm_step.launches
-    check(eval_launches == N_BATCHES * per_sample,
-          f"{model_name}: {eval_launches} kernel launches in {N_BATCHES} "
-          f"eval batches, expected {N_BATCHES} x {per_sample}")
+    check(eval_launches == eval_batches * per_sample,
+          f"{name}: {eval_launches} kernel launches in {eval_batches} "
+          f"eval batches, expected {eval_batches} x {per_sample}")
     check(all(np.isfinite(v).all() for d in (loss, acc, hist)
               for v in d.values()), "non-finite eval of the checkpoint")
     has_program = any("program" in k for d in (loss, acc, hist) for k in d)
@@ -669,6 +730,7 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
         "test_samples": samples, "loss_windows": windows.tolist(),
         "eval_loss": loss["loss"], "eval_s_per_batch":
         evaler.timings["batch"], "eval_forward_s": evaler.timings["forward"],
+        "eval_vm_s": evaler.timings["vm"],
         "card_vs_cpu": vs_cpu, "kernel_vs_plain": vs_plain}
     if time_steps:
         summary["step_s"] = time_train_steps(trainer, trainer.cache.batch(0))
@@ -719,23 +781,29 @@ class TopKGaps:
         return self.original(x, k, dim=dim, **kw)
 
 
-def beam_checks(evaler, split):
-    """On the first batch: K = 1 beam search vs greedy on the card; the
-    beams on the card vs the CPU; the planted rerank."""
-    cfg, model, dev = evaler.cfg, evaler.model, evaler.device
+def k1_beam_is_greedy(model, cfg, batch):
+    """Beam search with K = 1 decodes the greedy program of the full model
+    on `batch` (on the card)."""
     L = cfg.max_program_len
-    raw = split.get_batch_compact(split.ids[:BATCH])
-    batch = to_device(raw, dev)
     with torch.no_grad():
         enc = model.encoder(expand_batch(batch, cfg)["s_h"],
                             batch["demo_len"].long())
         c, h = enc["demo_c_summary"], enc["demo_h_summary"]
         b_tok, b_len, _ = model.program_decoder.beam(c, h, L, 1)
         _, g_tok, g_len = model.program_decoder.greedy(c, h, L)
-    inside = torch.arange(L, device=dev)[None, :] < b_len[:, None].long()
+    inside = torch.arange(L, device=c.device)[None, :] < b_len[:, None].long()
     check(torch.equal(b_len, g_len) and torch.equal(
         torch.where(inside, b_tok, -1), torch.where(inside, g_tok, -1)),
           "beam search with K = 1 does not decode the greedy program")
+
+
+def beam_checks(evaler, split):
+    """On the first batch: K = 1 beam search vs greedy on the card; the
+    beams on the card vs the CPU; the planted rerank."""
+    cfg, model, dev = evaler.cfg, evaler.model, evaler.device
+    raw = split.get_batch_compact(split.ids[:BATCH])
+    batch = to_device(raw, dev)
+    k1_beam_is_greedy(model, cfg, batch)
 
     with torch.no_grad():
         out_k = model(expand_batch(batch, cfg), decode_mode="beam")
@@ -823,16 +891,330 @@ def decode_phase(split, ckpt):
     return results
 
 
+def equal_states(a, b):
+    """Are two train states (checkpoint dicts) equal bit for bit: step,
+    every parameter and buffer, and Adam's moments and counts?"""
+    if a["step"] != b["step"] or set(a["model"]) != set(b["model"]):
+        return False
+    if any(not torch.equal(a["model"][k], b["model"][k])
+           for k in a["model"]):
+        return False
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    return set(sa) == set(sb) and all(
+        torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(sb[i][k]))
+        for i in sa for k in sa[i])
+
+
+def rate(train_dir, steps, log_step):
+    """The trainer's s/step over the steps after the first log line."""
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    times = {r["step"]: r["time"] for r in rows if r["split"] == "train"}
+    return (times[steps] - times[log_step]) / (steps - log_step)
+
+
+def eval_modes(ckpt, split, dataset_type, num_k):
+    """Eval s/batch of `ckpt` (up to N_BATCHES batches of `split`) with
+    deterministic algorithms on and off, in turns on, off, off, on ->
+    {"deterministic": [...], "default": [...]} (every batch of every turn
+    after the first turn's first batch)."""
+    batches = min(N_BATCHES, len(split.ids) // BATCH)
+    args = parse_args([
+        "--model", "full", "--dataset_type", dataset_type,
+        "--dataset_path", "in-memory", "--checkpoint", ckpt,
+        "--num_k", str(num_k), "--batch_size", str(BATCH),
+        "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
+        "--max_steps", str(batches), "--quiet", "--no_write_summary",
+        "--device", DEVICE])
+    evaler = Evaler(args, split, device=args.device)
+    times = {"deterministic": [], "default": []}
+    for turn, mode in enumerate(("deterministic", "default", "default",
+                                 "deterministic")):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        try:
+            evaler.eval_run()
+        finally:
+            torch.use_deterministic_algorithms(True)
+        times[mode] += evaler.timings["batch"][1 if turn == 0 else 0:]
+    return times
+
+
+def mode_profile(trainer, steps=PROFILE_STEPS, top=8):
+    """Where a train step's device time goes with deterministic algorithms
+    on and off: `steps` profiled steps in each mode (after one unprofiled
+    step) on the stream's first batch -> {"on_us": device µs a step,
+    "off_us": ..., "ops": [[kernel, on µs, off µs], ...] for the `top`
+    kernels whose time a step moves most between the modes}."""
+    batch = trainer.cache.batch(0)
+    per_step = {}
+    for mode in (True, False):
+        torch.use_deterministic_algorithms(mode)
+        try:
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    trainer.train_step(batch)
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(True)
+        # the kernels' rows only: an operator's row repeats the device
+        # time of the kernels it launched
+        per_step[mode] = {
+            e.key: e.self_device_time_total / steps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+    on, off = per_step[True], per_step[False]
+    names = sorted(set(on) | set(off),
+                   key=lambda n: -abs(on.get(n, 0) - off.get(n, 0)))
+    return {"on_us": sum(on.values()), "off_us": sum(off.values()),
+            "ops": [[n[:120], on.get(n, 0), off.get(n, 0)]
+                    for n in names[:top]]}
+
+
+def resume_phase(tag, split, test_split, dataset_type="karel",
+                 num_k=None, steps=RESUME_STEPS, profile=False):
+    """Exact resume on the card (deterministic mode, which main turns on
+    as the entry points do): two runs of `steps` steps from one seed, and a
+    run stopped at steps // 2 and resumed by a new Trainer, must all save
+    the same checkpoint bit for bit. Then the same run with deterministic
+    algorithms off for its steps, for the mode's cost in s/step, and with
+    `profile` the device time of a step in each mode (mode_profile)."""
+    log_step = steps // 2
+
+    def run(name, max_steps, target=None, deterministic=True):
+        train_dir = os.path.join(OUT_DIR, f"resume_{tag}_{name}")
+        if target is None:
+            shutil.rmtree(train_dir, ignore_errors=True)
+        args = trainer_args(train_dir, steps, log_step,
+                            dataset_type=dataset_type, num_k=num_k,
+                            test_sample_step=steps)
+        trainer = Trainer(args, split, test_split, device=args.device)
+        if target is not None:  # the killed run's stage target
+            with open(os.path.join(train_dir, "resume.json"), "w") as f:
+                json.dump({"target_step": target}, f)
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            trainer.train(max_steps=max_steps)
+        finally:
+            torch.use_deterministic_algorithms(True)
+        torch.cuda.synchronize()
+        return train_dir, trainer
+
+    def saved(train_dir):
+        return checkpoint.load(checkpoint.checkpoint_path(train_dir, steps))
+
+    dir_a, trainer_a = run("a", steps)
+    dir_b, _ = run("b", steps)
+    dir_c, _ = run("c", log_step)
+    _, resumed = run("c", steps, target=steps)
+    check(resumed._auto_resumed, f"{tag}: the relaunch did not resume")
+    first = saved(dir_a)
+    same_runs = equal_states(first, saved(dir_b))
+    same_resumed = equal_states(first, saved(dir_c))
+    dir_d, _ = run("d", steps, deterministic=False)
+    evals = eval_modes(checkpoint.checkpoint_path(dir_a, steps), test_split,
+                       dataset_type, num_k or SPLIT.k)
+    res = {"card": CARD, "steps": steps,
+           "two_runs_bitwise_equal": same_runs,
+           "resumed_run_bitwise_equal": same_resumed,
+           "deterministic_s_per_step": rate(dir_a, steps, log_step),
+           "deterministic_s_per_step_b": rate(dir_b, steps, log_step),
+           "default_s_per_step": rate(dir_d, steps, log_step),
+           "default_run_bitwise_equal": equal_states(first, saved(dir_d)),
+           "eval_s_per_batch": evals}
+    if profile:  # after the checkpoints: the profiled steps move trainer_a
+        res["step_device_profile"] = mode_profile(trainer_a)
+    print(f"resume_{tag} " + json.dumps(res), flush=True)
+    check(same_runs, f"{tag}: two runs from one seed differ on the card")
+    check(same_resumed, f"{tag}: the resumed run differs from the "
+          f"uninterrupted one")
+    return res
+
+
+def vizdoom_split():
+    """An in-memory ViZDoom split at the generator's published shapes
+    (80x80x3 frames, demos of 2-8 frames, programs of at most 32 tokens,
+    simple percepts, sprite style v2) with k = 25 seen and 10 unseen demos,
+    made in shards over a process pool -> (train split of VZD_TRAIN
+    distinct programs, test split of the next VZD_TEST, seconds)."""
+    cfg = VizdoomGeneratorConfig(num_demo_per_program=VZD_K,
+                                 num_test_demo_per_program=VZD_TEST_K)
+    workers = min(VZD_SHARDS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    split = vizdoom_memory.generate_split(
+        cfg, num_programs=VZD_PER_SHARD,
+        shard_seeds=[SEED + i for i in range(VZD_SHARDS)], processes=workers)
+    seconds = time.perf_counter() - t0
+    distinct, seen = [], set()
+    for id_ in split.ids:
+        program = bytes(split._store[id_]["program"])
+        if program not in seen:
+            seen.add(program)
+            distinct.append(id_)
+    print(f"vizdoom: generated {len(split.ids)} programs ({len(distinct)} "
+          f"distinct) in {seconds:.1f} s with {workers} processes; T "
+          f"{split.max_demo_len}, L {split.max_program_len}", flush=True)
+    check(len(distinct) >= VZD_TRAIN + VZD_TEST,
+          f"{len(distinct)} distinct ViZDoom programs generated, need "
+          f"{VZD_TRAIN + VZD_TEST}")
+    return (split.subset(distinct[:VZD_TRAIN], "train"),
+            split.subset(distinct[VZD_TRAIN:VZD_TRAIN + VZD_TEST], "test"),
+            seconds)
+
+
+def vizdoom_evaler(ckpt, test_split, mode="greedy", num_k=VZD_K):
+    flags = ["--model", "full", "--dataset_type", "vizdoom",
+             "--dataset_path", "in-memory", "--checkpoint", ckpt,
+             "--num_k", str(num_k), "--batch_size", str(BATCH),
+             "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
+             "--max_steps", str(VZD_EVAL_BATCHES), "--quiet",
+             "--no_write_summary", "--device", DEVICE, "--unroll_type", mode]
+    if mode == "beam":
+        flags += ["--beam_width", str(BEAM_WIDTH), "--execution_rerank",
+                  "--rerank_k", str(VZD_K)]
+    args = parse_args(flags)
+    return Evaler(args, test_split.subset(test_split.ids, "test", num_k),
+                  device=args.device)
+
+
+def vizdoom_phase():
+    """The ViZDoom full model on the card at units 512, bs 32, k 25: train
+    through the Trainer, evaluate greedy and beam + rerank through the
+    Evaler, hold the engine oracle, exact resume and the bs 32 -> 8 warm
+    start."""
+    train_split, test_split, gen_s = vizdoom_split()
+    train = train_phase(train_split, steps=VZD_STEPS, log_step=VZD_LOG_STEP,
+                        time_steps=False, name="vizdoom",
+                        dataset_type="vizdoom", num_k=VZD_K,
+                        test_split=test_split, eval_batches=VZD_EVAL_BATCHES)
+    ckpt = train["checkpoint"]
+
+    # the greedy eval again, its LSTM shapes seen by forward hooks, and the
+    # card against the CPU
+    evaler = vizdoom_evaler(ckpt, test_split)
+    cfg = evaler.cfg
+    shapes = {}
+
+    def record(cell, inputs, output):
+        shapes.setdefault(tuple(inputs[1].shape), fused_lstm.last_plan())
+
+    hooks = [m.register_forward_hook(record) for m in evaler.model.modules()
+             if isinstance(m, fused_lstm.FusedLSTMCell)]
+    loss, acc, hist = evaler.eval_run()
+    for hook in hooks:
+        hook.remove()
+    want = {(BATCH * VZD_K, 432), (BATCH * VZD_K, UNITS), (BATCH, UNITS)}
+    check(want <= set(shapes), f"vizdoom: LSTM launches at {sorted(shapes)},"
+          f" expected {sorted(want)}")
+    err = reference_agreement(evaler.model, cfg, test_split)
+    check(err <= MODEL_ATOL, f"vizdoom: card vs CPU forward differs by {err}")
+    batch = to_device(fetch_batch(test_split, test_split.ids[:BATCH],
+                                  "vizdoom"), evaler.device)
+    k1_beam_is_greedy(evaler.model, cfg, batch)
+
+    # the engine oracle: ground-truth programs reproduce their seen and
+    # unseen demos in DoomLite, frames shrunk by area_resize
+    t0 = time.perf_counter()
+    raw = fetch_batch(test_split, test_split.ids[:BATCH], "vizdoom")
+    scorer = evaler.scorer
+    tokens, lens = raw["program_tokens"], raw["program_len"][:, 0]
+    same = np.zeros(BATCH, np.float32)
+    nc, _ = scorer.execution(tokens, lens, same, raw["s_h"], raw["demo_len"],
+                             raw["init_pos"], raw["init_pos_len"])
+    tnc, _ = scorer.execution(tokens, lens, same, raw["test_s_h"],
+                              raw["test_demo_len"], raw["test_init_pos"],
+                              raw["test_init_pos_len"])
+    oracle = {"seen": float((nc == cfg.k).mean()),
+              "unseen": float((tnc == cfg.test_k).mean()),
+              "seconds": time.perf_counter() - t0}
+    check(oracle["seen"] == 1.0 and oracle["unseen"] == 1.0,
+          f"vizdoom: ground-truth programs do not reproduce their demos "
+          f"{oracle}")
+
+    # beam K = 5 with execution rerank over all 25 stored seen demos, the
+    # model reading 20 of them (so --rerank_k re-reads the other 5)
+    beam = vizdoom_evaler(ckpt, test_split, "beam", num_k=VZD_K - 5)
+    per_batch = lstm_launches(beam.cfg)[1]
+    fused_lstm.fused_lstm_step.launches = 0
+    b_loss, b_acc, b_hist = beam.eval_run()
+    b_launches = fused_lstm.fused_lstm_step.launches
+    check(b_launches == VZD_EVAL_BATCHES * per_batch,
+          f"vizdoom beam: {b_launches} launches, expected "
+          f"{VZD_EVAL_BATCHES} x {per_batch}")
+    check(all(np.isfinite(v).all() for d in (b_loss, b_acc, b_hist)
+              for v in d.values()), "vizdoom beam: non-finite report")
+
+    resume = resume_phase("vizdoom", train_split, test_split, "vizdoom",
+                          VZD_K, profile=True)
+
+    # the two-stage recipe as a user runs it: bs 32, then a new run that
+    # warm-starts from its checkpoint at bs 8 (`--checkpoint`)
+    stage1_dir = os.path.join(OUT_DIR, "vizdoom_stage1")
+    shutil.rmtree(stage1_dir, ignore_errors=True)
+    stage1 = Trainer(trainer_args(stage1_dir,
+                                  VZD_STAGE_STEPS, VZD_STAGE_STEPS,
+                                  dataset_type="vizdoom", num_k=VZD_K),
+                     train_split, test_split, device=DEVICE)
+    stage1.train(max_steps=VZD_STAGE_STEPS)
+    stage1_ckpt = checkpoint.latest_checkpoint(stage1.train_dir)
+    stage2_dir = os.path.join(OUT_DIR, "vizdoom_stage2")
+    shutil.rmtree(stage2_dir, ignore_errors=True)
+    stage2 = Trainer(trainer_args(stage2_dir, VZD_STAGE_STEPS,
+                                  VZD_STAGE_STEPS, dataset_type="vizdoom",
+                                  num_k=VZD_K, batch_size=VZD_STAGE2_BATCH,
+                                  extra_flags=("--checkpoint", stage1_ckpt)),
+                     train_split, test_split, device=DEVICE)
+    check(stage2.state.step == VZD_STAGE_STEPS
+          and stage2.cache.batch_size == VZD_STAGE2_BATCH,
+          "vizdoom: the bs 8 stage did not start from the bs 32 stage")
+    stage2.train(max_steps=VZD_STAGE_STEPS)
+    with open(os.path.join(stage2_dir, "metrics.jsonl")) as f:
+        stage2_loss = [json.loads(line)["loss"] for line in f
+                       if '"train"' in line]
+    check(stage2.state.step == 2 * VZD_STAGE_STEPS
+          and np.isfinite(stage2_loss).all(),
+          f"vizdoom: the bs 8 stage ended at step {stage2.state.step}, "
+          f"losses {stage2_loss}")
+
+    res = {"card": CARD, "generation_s": gen_s,
+           "programs_train": len(train_split.ids),
+           "programs_test": len(test_split.ids), "k": cfg.k,
+           "test_k": cfg.test_k, "T": cfg.max_demo_len,
+           "L": cfg.max_program_len, "train": train,
+           "greedy_shapes": sorted(shapes),
+           "greedy_plans": {f"{b}x{d}": p for (b, d), p in shapes.items()},
+           "card_vs_cpu_forward": err, "k1_beam_equals_greedy": True,
+           "greedy_s_per_batch": evaler.timings["batch"],
+           "greedy_vm_share": sum(evaler.timings["vm"])
+           / sum(evaler.timings["batch"]),
+           "engine_oracle": oracle, "beam_launches": b_launches,
+           "beam_s_per_batch": beam.timings["batch"],
+           "beam_vm_share": sum(beam.timings["vm"])
+           / sum(beam.timings["batch"]),
+           "beam_rerank_changed_rate": b_acc.get("rerank_changed_rate"),
+           "resume": resume, "stage2_losses": stage2_loss}
+    print("vizdoom " + json.dumps(res), flush=True)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    # as the entry points do, before any CUDA work (cuBLAS reads its
+    # workspace config when its first handle is made)
+    deterministic_cuda()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip(), flush=True)
+    global CARD
+    CARD = smi.stdout.strip()
+    print(CARD, flush=True)
 
     build_phase()
     rows = kernel_phase()
@@ -846,6 +1228,8 @@ def main():
                      extra_flags=("--scheduled_sampling",
                                   "--scheduled_sampling_decay_steps",
                                   str(SS_DECAY)))
+    resume = resume_phase("karel", split, split)
+    vizdoom = vizdoom_phase()
 
     def timed(r):  # the contract's names, device times of this run
         return {"ms": r["device_ms"], "plain_ms": r["plain_device_ms"],
@@ -865,7 +1249,9 @@ def main():
             "eval": launches, "train": train["launches"],
             **{name: b["launches"] for name, b in baselines.items()},
             **{f"decode_{m}": d["launches"] for m, d in decode.items()},
-            "train_scheduled_sampling": ss["launches"]},
+            "train_scheduled_sampling": ss["launches"],
+            "vizdoom_train": vizdoom["train"]["launches"],
+            "vizdoom_beam": vizdoom["beam_launches"]},
         "shapes": [dict(r, **timed(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Evaluation entry point of the port: the Karel model families `--model full | synthesis_baseline | summarizer |
-induction_baseline` (default full); an induction checkpoint reports action
+"""Evaluation entry point of the port: the model families `--model full |
+synthesis_baseline | summarizer | induction_baseline` (default full) on
+`--dataset_type karel | vizdoom`; an induction checkpoint reports action
 accuracies and no program ones.
 
     python -m demo2program_tpu_torch.cli.evaler_cli \
@@ -12,10 +13,14 @@ cuda; without a card, cuda raises). `--checkpoint` takes a trainer
 checkpoint or a bare state_dict; `--train_dir` evaluates its newest
 checkpoint. `--unroll_type {greedy,syntax_greedy,syntax_sample,beam}`
 picks the program decoding, `--beam_width` the beams and
-`--execution_rerank` the beam that reproduces the seen demos. `--rerank_k`
-is ViZDoom's and raises. The options not ported yet (--pred_program,
---result_data, --sweep_steps) are absent. Reading an HDF5 dataset needs
-h5py.
+`--execution_rerank` the beam that reproduces the seen demos; on ViZDoom,
+`--rerank_k N` checks the beams against N stored seen demos. Without
+`--max_steps` the whole split is evaluated, and the default summary file
+is named after that many batches, as in the JAX CLI. On the card, kernels
+run in deterministic mode (train/step.py:deterministic_cuda). The options
+not ported yet (--pred_program, --result_data, --output_dir, --id_list,
+--sweep_steps, --no_loss, --unseen_test) are absent. Reading an HDF5
+dataset needs h5py.
 """
 
 from demo2program_tpu_torch.cli.flags import base_parser
@@ -45,7 +50,10 @@ def build_parser():
                         "program, the highest-scoring beam that reproduces "
                         "all SEEN demos")
     p.add_argument("--rerank_k", type=int, default=0,
-                   help="ViZDoom only (not ported): a nonzero value raises")
+                   help="verify reranked beams against this many stored "
+                        "seen demos instead of --num_k (vizdoom only; the "
+                        "extra demos belong to the same task and carry no "
+                        "test-demo information). 0 = use num_k")
     p.add_argument("--no_write_summary", action="store_true", default=False)
     p.add_argument("--summary_file", type=str, default=None)
     return p
@@ -57,21 +65,34 @@ def parse_args(argv=None):
     return args
 
 
+def read_splits(args, is_train):
+    """(train, test, val) splits of the HDF5 dataset at args.dataset_path."""
+    if args.dataset_type == "vizdoom":
+        from demo2program_tpu_torch.data import vizdoom_dataset
+        return vizdoom_dataset.create_vizdoom_splits(
+            args.dataset_path, num_k=args.num_k, is_train=is_train)
+    from demo2program_tpu_torch.data import dataset
+    return dataset.create_default_splits(args.dataset_path, num_k=args.num_k,
+                                         is_train=is_train)
+
+
 def main(argv=None):
     import torch
 
-    from demo2program_tpu_torch.data.dataset import create_default_splits
     from demo2program_tpu_torch.eval.evaler import Evaler
-    from demo2program_tpu_torch.train.step import resolve_device
+    from demo2program_tpu_torch.train.step import (
+        deterministic_cuda, resolve_device)
 
     args = parse_args(argv)
-    resolve_device(args.device)
+    if resolve_device(args.device).type == "cuda":
+        deterministic_cuda()
     # results are compared with f32 references: no TF32 in convs or matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    splits = create_default_splits(args.dataset_path, num_k=args.num_k,
-                                   is_train=False)
+    splits = read_splits(args, is_train=False)
     target = dict(zip(["train", "test", "val"], splits))[args.dataset_split]
+    if not args.max_steps > 0:
+        args.max_steps = len(target.ids) // args.batch_size
     Evaler(args, target, device=args.device).eval_run()
 
 

@@ -1,5 +1,6 @@
-"""Training entry point of the port: the Karel model families `--model
-full | synthesis_baseline | summarizer | induction_baseline` (default full).
+"""Training entry point of the port: the model families `--model full |
+synthesis_baseline | summarizer | induction_baseline` (default full) on
+`--dataset_type karel | vizdoom`.
 
     python -m demo2program_tpu_torch.cli.trainer_cli \
         --dataset_path datasets/karel_dataset --num_k 10 --device cuda \
@@ -7,10 +8,12 @@ full | synthesis_baseline | summarizer | induction_baseline` (default full).
 
 Flags follow demo2program_tpu/cli/trainer_cli.py (the shared
 cli/flags.py parsers, the port's copy), plus `--device {cuda,cpu}` (default
-cuda; without a card, cuda raises). Relaunching a finished stage logs
-"Nothing to do" before loading any data. Reading an HDF5 dataset needs
-h5py; train/trainer.py:Trainer takes any split with `ids` and
-`get_batch_compact`, such as data/karel_memory.py's in-memory split.
+cuda; without a card, cuda raises). On the card, kernels run in
+deterministic mode (train/step.py:deterministic_cuda, before any CUDA work),
+so a resumed run repeats the uninterrupted one bit for bit. Relaunching a
+finished stage logs "Nothing to do" before loading any data. Reading an
+HDF5 dataset needs h5py; train/trainer.py:Trainer also takes the in-memory
+splits of data/karel_memory.py and data/vizdoom_memory.py.
 """
 
 import json
@@ -50,10 +53,12 @@ def _stage_already_done(train_dir):
 def main(argv=None):
     import torch
 
-    from demo2program_tpu_torch.train.step import resolve_device
+    from demo2program_tpu_torch.train.step import (
+        deterministic_cuda, resolve_device)
 
     args = parse_args(argv)
-    resolve_device(args.device)
+    if resolve_device(args.device).type == "cuda":
+        deterministic_cuda()
     if _stage_already_done(args.train_dir):
         log.infov("Nothing to do: %s already reached its resume.json "
                   "target", args.train_dir)
@@ -62,11 +67,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from demo2program_tpu_torch.data.dataset import create_default_splits
+    from demo2program_tpu_torch.cli.evaler_cli import read_splits
     from demo2program_tpu_torch.train.trainer import Trainer
 
-    ds_train, ds_test, _ = create_default_splits(args.dataset_path,
-                                                 num_k=args.num_k)
+    ds_train, ds_test, _ = read_splits(args, is_train=True)
     trainer = Trainer(args, ds_train, ds_test, device=args.device)
     log.warning("dataset: %s, learning_rate: %f", args.dataset_path,
                 args.learning_rate)

@@ -1,2 +1,2 @@
-"""The Karel grid world (the port's copy of demo2program_tpu/envs/karel.py,
-numpy only)."""
+"""The Karel grid world, the DoomLite engine and the ViZDoom environment
+wrapper (the port's copies of demo2program_tpu/envs, numpy only)."""

@@ -1,5 +1,6 @@
-"""Evaluation loop, every Karel model family (`--model`) and program decode
-mode (`--unroll_type greedy | syntax_greedy | syntax_sample | beam`).
+"""Evaluation loop, every model family (`--model`) on Karel and ViZDoom,
+and every program decode mode (`--unroll_type greedy | syntax_greedy |
+syntax_sample | beam`; the syntax modes are Karel's).
 
 Port of demo2program_tpu/eval/evaler.py: walks a split in order, without
 shuffling, for a fixed number of full batches and prints the reference's
@@ -15,21 +16,27 @@ Differences from the JAX evaler:
     models/convert.py. Without one the model is drawn from `--seed`;
   * the device is explicit (`device`, the CLI's `--device`, default
     "cuda"): asking for the card without one raises, nothing falls back;
-  * the config comes from a compact batch (`config_from_dataset`), so a
-    split only needs `ids` and `get_batch_compact(ids)`: an HDF5
-    KarelDataset or an in-memory split (data/karel_memory.py);
+  * a Karel split only needs `ids` and `get_batch_compact(ids)` (an HDF5
+    KarelDataset or data/karel_memory.py's split), a ViZDoom split `ids`,
+    `get_batch(ids)` and the data_info fields (data/vizdoom_dataset.py or
+    data/vizdoom_memory.py); `config_from_dataset` reads the dims from
+    them;
   * the canonical-comparison counters are reset at the start of each run;
   * `timings` holds, per batch, the seconds of the whole batch, of the
-    model forward (expand + model + objective, ending in the copy of the
-    results to the host), of VM scoring and of host syntax/canonical work
-    (eval/scorer.py); with `--execution_rerank` the VM time includes the
-    reranking's runs.
+    model forward (copy to the device + expand + model + objective, ending
+    in the copy of the results to the host), of execution scoring ("vm":
+    the device VM on Karel, engine replays on ViZDoom) and of host
+    syntax/canonical work; with `--execution_rerank` the "vm" time includes
+    the reranking's runs.
 
-With `--unroll_type beam --execution_rerank` the decoded program of each
-example is the highest-scoring beam that reproduces all seen demos
-(scorer.rerank_pick), and the final report adds `rerank_changed_rate`, the
-share of examples where that is not the best beam. `--rerank_k` is
-ViZDoom's and raises.
+ViZDoom batches are scored by eval/vizdoom_scorer.py on the host arrays of
+the batch, with the ViZDoom vocab. With `--unroll_type beam
+--execution_rerank` the decoded program of each example is the
+highest-scoring beam that reproduces all seen demos (scorer.rerank_pick),
+and the final report adds `rerank_changed_rate`, the share of examples where
+that is not the best beam. On ViZDoom, `--rerank_k N` > num_k verifies the
+beams against N stored seen demos of the same task instead of the num_k the
+model read (`_full_k_rerank_arrays`).
 
 The induction baseline decodes no program: as in the JAX evaler, nothing is
 scored and the report holds its action scalars only.
@@ -43,9 +50,11 @@ import torch
 
 from demo2program_tpu_torch.dsl import karel_canonical
 from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
+from demo2program_tpu_torch.dsl.vizdoom_vocab import VizDoomDSLVocab
 from demo2program_tpu_torch.envs.karel import (
     NUM_STATE_CHANNELS, PERCEPTION_NAMES)
 from demo2program_tpu_torch.eval.scorer import KarelScorer, to_host
+from demo2program_tpu_torch.eval.vizdoom_scorer import VizdoomScorer
 from demo2program_tpu_torch.models.common import ModelConfig
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
@@ -55,17 +64,28 @@ from demo2program_tpu_torch.train.step import (
 from demo2program_tpu_torch.utils import log
 
 
+def fetch_batch(dataset, ids, dataset_type):
+    """The host batch of `ids`: Karel's compact wire format, ViZDoom's full
+    one."""
+    if dataset_type == "vizdoom":
+        return dataset.get_batch(ids)
+    return dataset.get_batch_compact(ids)
+
+
+def program_vocab(dataset_type, perception_type="", level=None):
+    if dataset_type == "vizdoom":
+        return VizDoomDSLVocab(perception_type=perception_type,
+                               level=level or "not_simple")
+    return KarelVocab()
+
+
 def config_from_dataset(args, dataset):
-    """Data dims from the first compact item: the Karel branch of
-    demo2program_tpu/train/trainer.py:config_from_dataset."""
-    if args.dataset_type != "karel":
-        raise NotImplementedError(
-            f"dataset_type {args.dataset_type!r} is not ported")
-    item = dataset.get_batch_compact(dataset.ids[:1])
-    vocab = KarelVocab()
-    return ModelConfig(
+    """Data dims from the first item: demo2program_tpu/train/trainer.py:
+    config_from_dataset, read from a compact Karel item or a full-wire
+    ViZDoom one."""
+    common = dict(
         model=args.model,
-        dataset_type="karel",
+        dataset_type=args.dataset_type,
         batch_size=args.batch_size,
         num_lstm_cell_units=args.num_lstm_cell_units,
         encoder_rnn_type=args.encoder_rnn_type,
@@ -74,7 +94,37 @@ def config_from_dataset(args, dataset):
         scheduled_sampling_decay_steps=args.scheduled_sampling_decay_steps,
         cell_impl=args.cell_impl,
         compute_dtype=args.compute_dtype,
-        beam_width=getattr(args, "beam_width", 5),
+        beam_width=getattr(args, "beam_width", 5))
+    if args.dataset_type == "vizdoom":
+        item = dataset.get_data(dataset.ids[0])
+        vocab = program_vocab("vizdoom", dataset.perception_type,
+                              dataset.level)
+        return ModelConfig(
+            **common,
+            dim_program_token=item["program"].shape[0],
+            max_program_len=item["program"].shape[1],
+            k=item["s_h"].shape[0],
+            test_k=item["test_s_h"].shape[0],
+            max_demo_len=item["s_h"].shape[1],
+            h=item["s_h"].shape[2],
+            w=item["s_h"].shape[3],
+            depth=item["s_h"].shape[4],
+            action_space=item["a_h"].shape[2],
+            per_dim=item["per"].shape[2],
+            dsl_type="vizdoom_default",
+            env_type="vizdoom_default",
+            vizdoom_pos_keys=tuple(dataset.vizdoom_pos_keys),
+            vizdoom_max_init_pos_len=dataset.vizdoom_max_init_pos_len,
+            perception_type=dataset.perception_type,
+            level=dataset.level,
+            sprite_style=getattr(dataset, "sprite_style", "v2"),
+            program_end_token=vocab.end_token)
+    if args.dataset_type != "karel":
+        raise ValueError(f"unknown dataset_type {args.dataset_type!r}")
+    item = dataset.get_batch_compact(dataset.ids[:1])
+    vocab = KarelVocab()
+    return ModelConfig(
+        **common,
         dim_program_token=len(vocab.int2token),
         max_program_len=item["program_tokens"].shape[1],
         k=item["c_wall"].shape[1],
@@ -97,15 +147,12 @@ def save_checkpoint(model, path):
 
 class Evaler:
     def __init__(self, args, dataset, device="cuda"):
-        if getattr(args, "rerank_k", 0):
-            raise NotImplementedError(
-                "--rerank_k reranks against extra stored ViZDoom demos; "
-                "ViZDoom is not ported")
         self.args = args
         self.dataset = dataset
         self.device = resolve_device(device)
         self.cfg = config_from_dataset(args, dataset)
-        self.vocab = KarelVocab()
+        self.vocab = program_vocab(self.cfg.dataset_type,
+                                   self.cfg.perception_type, self.cfg.level)
         model = get_model_class(self.cfg.model)(self.cfg)
         self.checkpoint = args.checkpoint or ""
         train_dir = getattr(args, "train_dir", "")
@@ -125,7 +172,11 @@ class Evaler:
         self.eval_step = make_eval_step(
             self.model, self.cfg, self.cfg.model,
             decode_mode=getattr(args, "unroll_type", "greedy"))
-        self.scorer = KarelScorer(self.cfg, self.device, self.vocab)
+        if self.cfg.dataset_type == "vizdoom":
+            self.scorer = VizdoomScorer(self.cfg, self.vocab)
+        else:
+            self.scorer = KarelScorer(self.cfg, self.device, self.vocab)
+        # args.max_steps: the batches the run evaluates, as the CLI sets it
         self.summary_file = self.checkpoint + \
             "_report_testdata{}_num_k{}.txt".format(
                 args.max_steps * args.batch_size, args.num_k)
@@ -148,15 +199,17 @@ class Evaler:
             t0 = time.perf_counter()
             scorer_t0 = dict(self.scorer.timings)
             ids = self.dataset.ids[s * bs:(s + 1) * bs]
-            batch = to_device(self.dataset.get_batch_compact(ids),
-                              self.device)
+            raw = fetch_batch(self.dataset, ids, self.cfg.dataset_type)
+            batch = to_device(raw, self.device)
+            # ViZDoom scores on the host: its frames need not come back
+            scored = raw if self.cfg.dataset_type == "vizdoom" else batch
             report, evals = self.eval_step(batch)
             report = {k: float(v) for k, v in report.items()}
             evals = {k: v.cpu().numpy() for k, v in evals.items()}
             timings["forward"].append(time.perf_counter() - t0)
             if rerank and "beam_tokens" in evals:
-                self._apply_rerank(batch, evals)
-            scores = self.scorer.score_batch(batch, evals) if evals else {}
+                self._apply_rerank(scored, evals)
+            scores = self.scorer.score_batch(scored, evals) if evals else {}
             step_time = time.perf_counter() - t0
             timings["batch"].append(step_time)
             for k in ("vm", "host"):
@@ -205,7 +258,12 @@ class Evaler:
                                 axis=1)
         bl = np.take_along_axis(evals["beam_lengths"].astype(np.int32),
                                 order, axis=1)
-        pick = self.scorer.rerank_pick(bt, bl, batch)
+        rerank_k = int(getattr(self.args, "rerank_k", 0) or 0)
+        if rerank_k > self.cfg.k and self.cfg.dataset_type == "vizdoom":
+            pick = self.scorer.rerank_pick(
+                bt, bl, self._full_k_rerank_arrays(batch, rerank_k))
+        else:
+            pick = self.scorer.rerank_pick(bt, bl, batch)
         rows = np.arange(len(pick))
         tokens, lens = bt[rows, pick], bl[rows, pick]
         self._rerank_changed += int((pick != 0).sum())
@@ -227,6 +285,32 @@ class Evaler:
         evals["greedy_is_same_seq"] = same
         evals["greedy_program_seq_acc"] = same.mean()
         evals["greedy_program_token_acc"] = tok_acc.mean()
+
+    def _full_k_rerank_arrays(self, batch, rk):
+        """--rerank_k (demo2program_tpu/eval/evaler.py:266-290): the batch
+        rows' SEEN demos re-read from the split's store at rk > num_k demos
+        (up to the stored count), padded as get_data pads them. The extra
+        seen demos belong to the same task, so the verification still uses
+        no test-demo information. -> the 4 arrays rerank_pick reads."""
+        ds = self.dataset
+        rk = min(rk, ds.num_demo)
+        s_h, dl, ip, ipl = [], [], [], []
+        for id_ in batch["id"]:
+            grp = ds._store[str(id_)]
+            demo = grp["s_h"][()][:rk]
+            pad = np.zeros([rk, ds.max_demo_len] + list(demo.shape[2:]),
+                           demo.dtype)
+            pad[:, :demo.shape[1]] = demo
+            s_h.append(pad.astype(np.uint8))
+            dl.append(grp["s_h_len"][()][:rk].astype(np.float32))
+            pos = grp["vizdoom_init_pos"][()][:rk]
+            ppad = np.zeros([rk, pos.shape[1],
+                             ds.vizdoom_max_init_pos_len, 2], pos.dtype)
+            ppad[:, :, :pos.shape[2], :] = pos
+            ip.append(ppad.astype(np.int32))
+            ipl.append(grp["vizdoom_init_pos_len"][()][:rk].astype(np.int32))
+        return {"s_h": np.stack(s_h), "demo_len": np.stack(dl),
+                "init_pos": np.stack(ip), "init_pos_len": np.stack(ipl)}
 
     # -- report formatting (demo2program_tpu/eval/evaler.py:292-432) --------
     def _assemble(self, report, evals, scores):

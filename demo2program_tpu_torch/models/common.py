@@ -71,10 +71,9 @@ class ModelConfig:
 
 def check_ported(cfg):
     """Raise NotImplementedError for what no model family of the port runs
-    yet: ViZDoom and bf16 model compute."""
-    if cfg.dataset_type != "karel":
-        raise NotImplementedError(
-            f"{cfg.model!r} on {cfg.dataset_type!r} is not ported")
+    yet: bf16 model compute."""
+    if cfg.dataset_type not in ("karel", "vizdoom"):
+        raise ValueError(f"unknown dataset_type {cfg.dataset_type!r}")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r} is not ported")
@@ -97,7 +96,8 @@ class SinglePassDemoEncoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.demo_encoder = DemoEncoder(cfg.num_lstm_cell_units, cfg.h,
-                                        cfg.w, cfg.depth, cfg.cell_impl)
+                                        cfg.w, cfg.depth, cfg.cell_impl,
+                                        cfg.dataset_type)
 
     def forward(self, s_h, demo_len):
         bs, k = s_h.shape[0], s_h.shape[1]
@@ -117,7 +117,7 @@ class TwoPassDemoEncoder(nn.Module):
         super().__init__()
         units = cfg.num_lstm_cell_units
         self.demo_encoder = DemoEncoder(units, cfg.h, cfg.w, cfg.depth,
-                                        cfg.cell_impl)
+                                        cfg.cell_impl, cfg.dataset_type)
         self.second_path = SecondPathEncoder(units, cfg.cell_impl)
         self.demo_h_summary = SummarizeFeature(units, rn_aggregation)
         self.demo_c_summary = SummarizeFeature(units, rn_aggregation)

@@ -16,21 +16,28 @@ from demo2program_tpu_torch.models.ops import Conv2D, FC, make_lstm_cell
 
 
 class StateEncoder(nn.Module):
-    """Per-frame CNN for Karel grids (`model_full.py:216-231`): 3x3 convs,
-    stride 2, 16/32/48 channels. Input (B, h, w, depth) NHWC, as in JAX."""
+    """Per-frame CNN (`model_full.py:216-231`): 3x3 convs, stride 2, 16/32/48
+    channels for Karel grids, two more of 48 (conv4, conv5) for ViZDoom
+    frames. Input (B, h, w, depth) NHWC, as in JAX; the flax SAME padding
+    takes 80x80 frames to 40, 20, 10, 5 and 3, so a ViZDoom frame has
+    3 * 3 * 48 = 432 features."""
 
-    def __init__(self, h=8, w=8, depth=16):
+    def __init__(self, h=8, w=8, depth=16, dataset_type="karel"):
         super().__init__()
-        self.conv1 = Conv2D(depth, 16)
-        self.conv2 = Conv2D(16, 32)
-        self.conv3 = Conv2D(32, 48)
-        for _ in range(3):
+        convs = [Conv2D(depth, 16), Conv2D(16, 32), Conv2D(32, 48)]
+        if dataset_type == "vizdoom":
+            convs += [Conv2D(48, 48), Conv2D(48, 48)]
+        for i, conv in enumerate(convs, 1):
+            self.add_module(f"conv{i}", conv)
+        self.n_convs = len(convs)
+        for _ in convs:
             h, w = -(-h // 2), -(-w // 2)
         self.out_features = 48 * h * w
 
     def forward(self, s):  # (B, h, w, depth) -> (B, feat)
         x = s.float().permute(0, 3, 1, 2)  # demos arrive as uint8
-        x = self.conv3(self.conv2(self.conv1(x)))
+        for i in range(1, self.n_convs + 1):
+            x = getattr(self, f"conv{i}")(x)
         # flatten in the JAX (NHWC) order
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
@@ -96,9 +103,10 @@ class DemoEncoder(nn.Module):
     """CNN per frame -> LSTM over time (`model_full.py:235-258`).
     Input (B, T, h, w, depth); returns (history (B, T, units), h, c)."""
 
-    def __init__(self, units, h=8, w=8, depth=16, cell_impl="xla"):
+    def __init__(self, units, h=8, w=8, depth=16, cell_impl="xla",
+                 dataset_type="karel"):
         super().__init__()
-        self.state_encoder = StateEncoder(h, w, depth)
+        self.state_encoder = StateEncoder(h, w, depth, dataset_type)
         self.lstm = LSTMEncoder(self.state_encoder.out_features, units,
                                 cell_impl)
 

@@ -78,7 +78,7 @@ def decode_program(decoder, init_c, init_h, cfg, decode_mode, noise=None,
     reports one-hot indicator logits of the best beam's tokens (it has no
     per-step distribution) and the whole beam set as beam_{tokens,
     lengths,scores}, which execution reranking reads. The syntax modes run
-    the Karel pushdown tables (the port runs Karel only, check_ported)."""
+    the Karel pushdown tables and raise on ViZDoom, as in JAX."""
     out = {}
     if decode_mode == "greedy":
         logits, tokens, lengths = decoder.greedy(init_c, init_h,
@@ -91,6 +91,10 @@ def decode_program(decoder, init_c, init_h, cfg, decode_mode, noise=None,
                "beam_lengths": beams["lengths"],    # (bs, K)
                "beam_scores": beams["scores"]}      # (bs, K) log-prob sums
     elif decode_mode in ("syntax_greedy", "syntax_sample"):
+        if cfg.dataset_type != "karel":
+            raise NotImplementedError(
+                "syntax-constrained decoding is defined for the karel DSL "
+                "(matching the reference's karel-only dsl_syntax)")
         logits, tokens, lengths = decoder.greedy_constrained(
             init_c, init_h, cfg.max_program_len,
             _syntax_tables(init_c.device),

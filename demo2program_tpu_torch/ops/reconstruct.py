@@ -1,4 +1,4 @@
-"""On-device demo reconstruction from the compact wire format, Karel only.
+"""On-device demo reconstruction from the compact wire format.
 
 Port of demo2program_tpu/ops/reconstruct.py. A compact batch carries only
 the initial state and the recorded actions of each demo:
@@ -11,6 +11,12 @@ and `expand_batch` rebuilds state frames, perception vectors and the
 action/program one-hots on the device. The replay uses the no-error
 semantics (blocked moves turn 180, marker over/underflow is a no-op), which
 reproduces both dataset flavours exactly (see the JAX module's notes).
+
+A ViZDoom batch gathered from the device cache (train/device_cache.py:
+DoomDeviceCache) carries its frames and percepts whole (`dc_s_h`, `dc_per`:
+engine video cannot be replayed) and the raw action rows; `expand_batch`
+dispatches it on `dc_s_h` to `expand_doom_batch`, which rebuilds only the
+program and action one-hots.
 
 Integer ops are bit-exact with the JAX package: `%` is floor-mod on negative
 ints (never torch.fmod), and every gathered index is clipped or in range.
@@ -206,9 +212,32 @@ def _program_onehot(out, batch, cfg):
     out["program"] = prog.transpose(1, 2)
 
 
+def expand_doom_batch(batch, cfg):
+    """Device-cached ViZDoom batch -> the full batch dict
+    (demo2program_tpu/ops/reconstruct.py:252-271): frames and percepts are
+    passed through, the program one-hot and the quirky action supervision
+    rebuilt."""
+    out = {key: batch[key] for key in
+           ("program_len", "demo_len", "test_demo_len") if key in batch}
+    _program_onehot(out, batch, cfg)
+    out["s_h"] = batch["dc_s_h"]
+    out["per"] = batch["dc_per"]
+    out["a_h"], out["a_h_tokens"] = _action_supervision(
+        batch["c_a_raw"], batch["c_a_row_len"][:, 0], cfg.action_space,
+        cfg.action_space - 1)
+    if "test_c_a_raw" in batch:
+        out["test_a_h"], out["test_a_h_tokens"] = _action_supervision(
+            batch["test_c_a_raw"], batch["test_c_a_row_len"][:, 0],
+            cfg.action_space, cfg.action_space - 1)
+    return out
+
+
 def expand_batch(batch, cfg):
-    """Compact Karel batch (dict of tensors on one device) -> the full batch
-    dict the model and objective read. Full-wire batches pass through."""
+    """Compact Karel batch or device-cached ViZDoom batch (dict of tensors
+    on one device) -> the full batch dict the model and objective read.
+    Full-wire batches pass through."""
+    if "dc_s_h" in batch:
+        return expand_doom_batch(batch, cfg)
     if not is_compact(batch):
         return batch
     out = {key: batch[key] for key in

@@ -1,4 +1,4 @@
-"""Device-resident Karel train split, with batches drawn on the device.
+"""Device-resident train splits, with batches gathered on the device.
 
 Port of KarelDeviceCache and the batch selection of make_chunked_train_step
 (demo2program_tpu/train/device_cache.py:30-94, train/step.py:146-195). The
@@ -12,7 +12,14 @@ generator seeded by (seed, e), and step s takes rows [s_in_e * bs,
 batches. The order is not the JAX package's (jax.random.permutation has no
 counterpart here), only its rule. Each epoch's permutation is copied to the
 device once, so a step makes no host-to-device copy.
+
+DoomDeviceCache does the same for a ViZDoom split, whose frames cannot be
+replayed on the device: see its docstring.
 """
+
+import json
+import os
+import os.path as osp
 
 import numpy as np
 import torch
@@ -63,4 +70,219 @@ class KarelDeviceCache:
     def batch(self, step):
         """The compact batch of step `step`, gathered on the device."""
         idx = self.indices(step)
+        return {k: v.index_select(0, idx) for k, v in self.data.items()}
+
+
+# the sidecar is built at the dataset's full k when the host arrays fit this
+# budget (so one build serves every num_k), else at num_k only
+HOST_BUDGET_BYTES = int(os.environ.get(
+    "D2P_DOOM_HOST_CACHE_BYTES", 48 * 1024 ** 3))
+
+
+def estimate_cache_bytes(dataset, k=None):
+    """Bytes of the cached arrays of `dataset` at k demos (frames, and 32
+    bytes a frame for percepts and actions)."""
+    k = dataset.num_k if k is None else k
+    h, w, c = dataset.s_h_h, dataset.s_h_w, dataset.s_h_c
+    return len(dataset.ids) * k * dataset.max_demo_len * (h * w * c + 32)
+
+
+def _h5_fingerprint(ds):
+    st = os.stat(osp.join(ds.dataset_path, "data.hdf5"))
+    return [st.st_size, st.st_mtime_ns]
+
+
+class DoomDeviceCache:
+    """The ViZDoom train split on `device`, batches gathered there.
+
+    Port of DoomDeviceCache (demo2program_tpu/train/device_cache.py:
+    96-358), one device. ViZDoom demos are engine video that cannot be
+    replayed on the device, so the whole split's frames (uint8), percepts
+    and raw action rows are copied to the device once and each step gathers
+    its rows by index; `ops/reconstruct.expand_doom_batch` rebuilds the
+    one-hots. A split that does not fit the device's free memory raises:
+    there is no streaming path to fall back to.
+
+    Batches follow the JAX cache's index stream: numpy RandomState(seed),
+    a fresh permutation whenever the next batch would run past the split,
+    consecutive slices of it. The batch of step s is the stream's s-th draw
+    (`batch(s)`; `fast_forward(n)` skips n draws on the host), so a resumed
+    run, or a later stage started at step s, replays what an uninterrupted
+    run from step 0 would draw. `set_batch_size` re-aims the cache at
+    another batch size (the bs 32 -> 8 second stage) without copying the
+    split again; the stream restarts from the seed.
+
+    A split read from HDF5 keeps its packed host arrays in the
+    `device_cache_v1/` sidecar beside data.hdf5 (per-key .npy files and
+    meta.json with the item count, data.hdf5's (size, mtime_ns) and the
+    built k; any mismatch rebuilds), built at the dataset's full k when that
+    fits HOST_BUDGET_BYTES. The sidecar is the JAX package's: either
+    package reads the other's. An in-memory split (no dataset_path) packs
+    its arrays in memory."""
+
+    # keys whose leading demo axis is sliced to num_k at load time
+    _K_SLICED = ("dc_s_h", "dc_per", "c_a_raw", "demo_len")
+
+    def __init__(self, dataset, device, batch_size, seed,
+                 include_test_actions=False):
+        self.device = torch.device(device)
+        self.seed = seed
+        self.batch_size = batch_size
+        self.ids = np.asarray(dataset.ids)
+        self.n = len(self.ids)
+        if batch_size > self.n:
+            raise ValueError(
+                f"batch_size {batch_size} exceeds split size {self.n}")
+        host = self._load_or_build(dataset, include_test_actions)
+        nbytes = sum(v.nbytes for v in host.values())
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            if nbytes > free:
+                raise RuntimeError(
+                    f"the ViZDoom train split needs {nbytes} bytes on "
+                    f"{self.device}, {free} are free; use fewer programs or "
+                    f"a smaller --num_k")
+        log.info("doom device cache: %.2f GB (%d items) on %s", nbytes / 1e9,
+                 self.n, self.device)
+        self.data = to_device(host, self.device)
+        self._reset()
+
+    def _load_or_build(self, ds, include_test_actions):
+        if ds.dataset_path is None:
+            arrays = self._build_host_arrays(ds, True)
+        else:
+            arrays = self._sidecar(ds)
+        out = {}
+        for key, v in arrays.items():
+            if not include_test_actions and key.startswith("test_"):
+                continue
+            v = v[:, :ds.num_k] if key in self._K_SLICED else v
+            out[key] = np.ascontiguousarray(v)
+        return out
+
+    def _sidecar(self, ds):
+        """The packed host arrays of an HDF5 split, from the sidecar or
+        built and written there."""
+        cache_dir = osp.join(ds.dataset_path, "device_cache_v1")
+        meta_path = osp.join(cache_dir, "meta.json")
+        split = "".join(c for c in ds.name if c.isalnum()) or "split"
+        fp = _h5_fingerprint(ds)
+        entry = None
+        if osp.exists(meta_path):
+            with open(meta_path) as f:
+                entry = json.load(f).get(split)
+        fresh = (isinstance(entry, dict) and entry.get("n") == len(ds.ids)
+                 and entry.get("fp") == fp and entry.get("k", 0) >= ds.num_k)
+        if fresh:
+            return {fn[len(split) + 1:-4]: np.load(osp.join(cache_dir, fn),
+                                                   mmap_mode="r")
+                    for fn in os.listdir(cache_dir)
+                    if fn.startswith(split + "_") and fn.endswith(".npy")}
+        if entry is not None:
+            log.warn("device cache sidecar for %s is stale (dataset or "
+                     "num_k changed); rebuilding", split)
+        build_k = ds.num_demo
+        if estimate_cache_bytes(ds, k=build_k) > HOST_BUDGET_BYTES:
+            build_k = ds.num_k
+            log.warn("full-k host cache would exceed %.0f GB; building at "
+                     "num_k=%d only", HOST_BUDGET_BYTES / 1e9, build_k)
+        arrays = self._build_host_arrays(ds, True, k=build_k)
+        try:
+            os.makedirs(cache_dir, exist_ok=True)
+            for key, v in arrays.items():
+                np.save(osp.join(cache_dir, f"{split}_{key}.npy"), v)
+            meta = {}
+            if osp.exists(meta_path):
+                with open(meta_path) as f:
+                    meta = json.load(f)
+            meta[split] = {"n": len(ds.ids), "fp": fp, "k": build_k}
+            with open(meta_path, "w") as f:
+                json.dump(meta, f)
+        except OSError:
+            log.warn("device cache sidecar not writable; in memory only")
+        return arrays
+
+    @staticmethod
+    def _build_host_arrays(ds, include_test_actions, k=None):
+        k = ds.num_k if k is None else k
+        T, L = ds.max_demo_len, ds.max_program_len
+        n = len(ds.ids)
+        first = ds._store[ds.ids[0]]
+        h, w, c = first["s_h"].shape[2:5]
+        P = first["p_v_h"].shape[2]
+        out = {
+            "dc_s_h": np.zeros((n, k, T, h, w, c), np.uint8),
+            "dc_per": np.zeros((n, k, T, P), np.uint8),
+            "c_a_raw": np.zeros((n, k, T), np.int8),
+            "c_a_row_len": np.zeros((n, 1), np.int32),
+            "demo_len": np.zeros((n, k), np.float32),
+            "program_tokens": np.zeros((n, L), np.int32),
+            "program_len": np.zeros((n, 1), np.float32),
+        }
+        if include_test_actions:
+            tk = ds.test_k
+            out["test_c_a_raw"] = np.zeros((n, tk, T), np.int8)
+            out["test_c_a_row_len"] = np.zeros((n, 1), np.int32)
+            out["test_demo_len"] = np.zeros((n, tk), np.float32)
+        for i, id_ in enumerate(ds.ids):
+            g = ds._store[id_]
+            s_h = g["s_h"][:k]
+            out["dc_s_h"][i, :, :s_h.shape[1]] = s_h.astype(np.uint8)
+            pv = g["p_v_h"][:k]
+            out["dc_per"][i, :, :pv.shape[1]] = pv.astype(np.uint8)
+            a = g["a_h"][:k]
+            out["c_a_raw"][i, :, :a.shape[1]] = a
+            out["c_a_row_len"][i, 0] = a.shape[1]
+            out["demo_len"][i] = g["s_h_len"][:k]
+            prog = g["program"][()]
+            out["program_tokens"][i, :len(prog)] = prog
+            out["program_len"][i, 0] = len(prog)
+            if include_test_actions:
+                ta = g["test_a_h"][()]
+                out["test_c_a_raw"][i, :, :ta.shape[1]] = ta
+                out["test_c_a_row_len"][i, 0] = ta.shape[1]
+                out["test_demo_len"][i] = g["test_s_h_len"][()]
+            if i and i % 2000 == 0:
+                log.info("doom device cache: read %d / %d items", i, n)
+        return out
+
+    def _reset(self):
+        self.rng = np.random.RandomState(self.seed)
+        self._order, self._pos, self._next = None, 0, 0
+
+    def set_batch_size(self, batch_size):
+        """Draw batches of `batch_size` from now on (the stream restarts
+        from the seed); the split stays where it is."""
+        if batch_size > self.n:
+            raise ValueError(
+                f"batch_size {batch_size} exceeds split size {self.n}")
+        if batch_size != self.batch_size:
+            self.batch_size = batch_size
+            self._reset()
+
+    def _draw(self):
+        if self._order is None or self._pos + self.batch_size > self.n:
+            self._order = self.rng.permutation(self.n)
+            self._pos = 0
+        idx = self._order[self._pos:self._pos + self.batch_size]
+        self._pos += self.batch_size
+        self._next += 1
+        return idx
+
+    def fast_forward(self, n):
+        """Skip the next `n` draws of the stream (host only)."""
+        for _ in range(n):
+            self._draw()
+
+    def indices(self, step):
+        """Rows of step `step` (host int64 array): the stream's step-th
+        draw."""
+        if step < self._next:
+            self._reset()
+        self.fast_forward(step - self._next)
+        return self._draw()
+
+    def batch(self, step):
+        """The batch of step `step`, gathered on the device."""
+        idx = torch.as_tensor(self.indices(step), device=self.device)
         return {k: v.index_select(0, idx) for k, v in self.data.items()}

@@ -18,6 +18,8 @@ in step s come from a generator seeded with a pure function of (seed, s),
 so a resumed run draws what the uninterrupted one drew.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -48,6 +50,39 @@ def resolve_device(name):
         raise RuntimeError(f"device {name!r} asked for, but CUDA is not "
                            f"available; pass --device cpu to run on the CPU")
     return device
+
+
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+def deterministic_cuda():
+    """Make the card's kernels deterministic, so a run on the card repeats
+    bit for bit: torch.use_deterministic_algorithms (cuDNN's deterministic
+    algorithms, deterministic scatters) and cuBLAS's fixed workspace,
+    CUBLAS_WORKSPACE_CONFIG, unless the caller set one. cuBLAS reads the
+    variable when its first handle is made: call this before any CUDA
+    work."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    torch.use_deterministic_algorithms(True)
+    # the mode also fills every fresh allocation, a kernel each: nothing
+    # here reads memory it has not written, and the eager VM and train
+    # step allocate thousands of small tensors a batch
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def require_deterministic_cuda():
+    """Raise unless the card runs deterministically (deterministic_cuda, or
+    the caller's own equal settings): exact resume depends on it. Sets
+    nothing: the mode is process-wide, so the entry point chooses it."""
+    workspace = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if not torch.are_deterministic_algorithms_enabled() or workspace not in (
+            ":4096:8", ":16:8"):
+        raise RuntimeError(
+            "training on the card needs deterministic kernels: call "
+            "train/step.py:deterministic_cuda() before any CUDA work "
+            f"(deterministic algorithms: "
+            f"{torch.are_deterministic_algorithms_enabled()}, "
+            f"CUBLAS_WORKSPACE_CONFIG={workspace!r})")
 
 
 def learning_rate_at(learning_rate, count, lr_weight_decay=False):

@@ -1,9 +1,11 @@
-"""The trainer, every Karel model family (`--model`).
+"""The trainer, every model family (`--model`) on Karel and ViZDoom.
 
 Port of demo2program_tpu/train/trainer.py with its device-cache loop
-(`_train_chunked`, :509-575): the compact train split lives on the device
-(train/device_cache.py) and each step gathers its batch there, so a step
-copies nothing from the host. The cadence is the JAX package's:
+(`_train_chunked`, :509-575): the train split lives on the device
+(train/device_cache.py: Karel's compact split, or ViZDoom's frames,
+percepts and action rows) and each step gathers its batch there, so a step
+copies nothing but its row indices from the host. The cadence is the JAX
+package's:
 
   * a test-sample eval (greedy decode on the next batch of an endless
     shuffled test stream) whenever step % test_sample_step == 0, before the
@@ -17,21 +19,29 @@ copies nothing from the host. The cadence is the JAX package's:
 Relaunching into a train_dir that has checkpoints resumes from the newest
 one (step, parameters, BN statistics, Adam state) and trains to the target
 recorded in resume.json; batches are a pure function of (seed, step), so
-the resumed run replays the uninterrupted one exactly. `--checkpoint`
-warm-starts a fresh train_dir from a trainer checkpoint (the whole train
-state, as the JAX restore does) or from a bare model state_dict.
+the resumed run replays the uninterrupted one exactly. On the card that
+needs deterministic kernels, a process-wide mode that the entry point sets
+before any CUDA work (train/step.py:deterministic_cuda, which the CLIs call
+first thing: cuBLAS reads CUBLAS_WORKSPACE_CONFIG at its first handle);
+`Trainer` on the card raises without it. `--checkpoint` warm-starts a fresh
+train_dir from a trainer checkpoint (the whole train state, as the JAX
+restore does) or from a bare model state_dict.
 
 Differences from the JAX trainer: the model is drawn with
 models/ops.py:init_parameters from `--seed` (same initializers, other
 numbers); the batch order follows the same rule with numpy's generator, not
-jax.random (train/device_cache.py); checkpoints are torch files
-(train/checkpoint.py). The induction baseline trains on the test demos'
-actions, so its device cache keeps the `test_*` arrays, and its test-sample
-evals write no program samples, as in the JAX trainer. With
-`--scheduled_sampling` the draws of step s are a pure function of (seed, s)
-(train/step.py:step_generator), so exact resume still holds. Not ported:
-the streaming BatchPipeline path, ViZDoom, bf16 compute, `--sample_images`
-and `--profile_steps`.
+jax.random (train/device_cache.py; ViZDoom's follows the JAX cache's numpy
+stream); checkpoints are torch files (train/checkpoint.py). The induction
+baseline trains on the test demos' actions, so its device cache keeps the
+`test_*` arrays, and its test-sample evals write no program samples, as in
+the JAX trainer. With `--scheduled_sampling` the draws of step s are a pure
+function of (seed, s) (train/step.py:step_generator), so exact resume still
+holds. ViZDoom trains from a DoomDeviceCache and samples test batches in
+the full wire format, as the JAX trainer does (trainer.py:136-192); its
+bs 32 -> 8 second stage is a new run with `--checkpoint` and
+`--batch_size 8`. Not ported: the streaming BatchPipeline path
+(a ViZDoom split that does not fit the card raises), bf16 compute,
+`--sample_images` and `--profile_steps`.
 """
 
 import json
@@ -41,14 +51,16 @@ import time
 import numpy as np
 import torch
 
-from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
-from demo2program_tpu_torch.eval.evaler import config_from_dataset
+from demo2program_tpu_torch.eval.evaler import (
+    config_from_dataset, fetch_batch, program_vocab)
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.train import checkpoint
-from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
+from demo2program_tpu_torch.train.device_cache import (
+    DoomDeviceCache, KarelDeviceCache)
 from demo2program_tpu_torch.train.step import (
-    TrainState, make_eval_step, make_train_step, resolve_device, to_device)
+    TrainState, make_eval_step, make_train_step, require_deterministic_cuda,
+    resolve_device, to_device)
 from demo2program_tpu_torch.utils import log
 
 
@@ -62,6 +74,8 @@ class Trainer:
                 raise NotImplementedError(f"{flag} is not ported")
         self.args = args
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            require_deterministic_cuda()
         self.cfg = cfg = config_from_dataset(args, dataset_train)
 
         hp = "bs_{}_lr_{}_{}_cell_{}".format(
@@ -84,11 +98,17 @@ class Trainer:
         self.train_step = make_train_step(self.state, cfg, args.model,
                                           seed=args.seed)
         self.eval_step = make_eval_step(self.model, cfg, args.model)
-        self.cache = KarelDeviceCache(
-            dataset_train, self.device, args.batch_size, args.seed,
-            include_test=args.model == "induction_baseline")
+        induction = args.model == "induction_baseline"
+        if cfg.dataset_type == "vizdoom":
+            self.cache = DoomDeviceCache(
+                dataset_train, self.device, args.batch_size, args.seed,
+                include_test_actions=induction)
+        else:
+            self.cache = KarelDeviceCache(
+                dataset_train, self.device, args.batch_size, args.seed,
+                include_test=induction)
         self.test_stream = _InfiniteEval(dataset_test, args.batch_size,
-                                         args.seed)
+                                         args.seed, cfg.dataset_type)
 
         # auto-resume takes precedence over --checkpoint (a warm start)
         self._auto_resumed = False
@@ -109,7 +129,8 @@ class Trainer:
         log.warn("total trainable parameters: %.2fM", n_params / 1e6)
         self.metrics_path = os.path.join(self.train_dir, "metrics.jsonl")
         self.samples_path = os.path.join(self.train_dir, "samples.txt")
-        self.vocab = KarelVocab()
+        self.vocab = program_vocab(cfg.dataset_type, cfg.perception_type,
+                                   cfg.level)
 
     # -- checkpointing --------------------------------------------------------
     def save(self):
@@ -228,16 +249,17 @@ class Trainer:
 
 
 class _InfiniteEval:
-    """Endless shuffled compact test batches (numpy, on the host): JAX's
-    _InfiniteEval over BatchPipeline(shuffle=True, compact=True), with the
-    same id order (numpy RandomState(seed) reshuffles every epoch; the
-    ragged tail is dropped)."""
+    """Endless shuffled test batches (numpy, on the host): JAX's
+    _InfiniteEval over BatchPipeline(shuffle=True), compact for Karel and
+    full-wire for ViZDoom, with the same id order (numpy RandomState(seed)
+    reshuffles every epoch; the ragged tail is dropped)."""
 
-    def __init__(self, dataset, batch_size, seed):
+    def __init__(self, dataset, batch_size, seed, dataset_type="karel"):
         if batch_size > len(dataset.ids):
             raise ValueError(f"batch_size {batch_size} exceeds the test "
                              f"split size {len(dataset.ids)}")
         self.dataset = dataset
+        self.dataset_type = dataset_type
         self.batch_size = batch_size
         self.rng = np.random.RandomState(seed)
         self._id_batches = self._make_id_batches()
@@ -252,4 +274,5 @@ class _InfiniteEval:
                 yield [ids[i] for i in order[b * bs:(b + 1) * bs]]
 
     def __next__(self):
-        return self.dataset.get_batch_compact(next(self._id_batches))
+        return fetch_batch(self.dataset, next(self._id_batches),
+                           self.dataset_type)

@@ -440,6 +440,7 @@ def test_apply_rerank_matches_jax(planted):
     want = {k: v.copy() for k, v in evals.items()}
     JaxEvaler._apply_rerank(jax_self, batch, want)
     port_self = types.SimpleNamespace(
+        args=types.SimpleNamespace(rerank_k=0), cfg=cfg,
         scorer=KarelScorer(cfg, "cpu"), _rerank_changed=0, _rerank_total=0)
     got = {k: v.copy() for k, v in evals.items()}
     Evaler._apply_rerank(port_self, to_device(batch, "cpu"), got)
@@ -466,11 +467,23 @@ def test_evaler_cli_beam_with_rerank(tmp_path, monkeypatch, log_records):
 
 
 def test_rerank_k_is_vizdoom_only():
+    """--rerank_k re-reads stored ViZDoom demos; on Karel it changes
+    nothing, as in the JAX evaler (evaler.py:238-243): the same report as
+    a run without it (tests/test_torch_vizdoom_eval.py holds its ViZDoom
+    picks against JAX)."""
     split = generate_split(SPLIT)
-    args = evaler_cli.parse_args([
-        "--dataset_path", "in-memory", "--num_k", str(SPLIT.k),
-        "--batch_size", "4", "--num_lstm_cell_units", "16",
-        "--device", "cpu", "--unroll_type", "beam", "--execution_rerank",
-        "--rerank_k", "5"])
-    with pytest.raises(NotImplementedError, match="ViZDoom"):
-        Evaler(args, split, device="cpu")
+    runs = []
+    for extra in ([], ["--rerank_k", "5"]):
+        args = evaler_cli.parse_args([
+            "--dataset_path", "in-memory", "--num_k", str(SPLIT.k),
+            "--batch_size", "4", "--num_lstm_cell_units", "16",
+            "--device", "cpu", "--unroll_type", "beam", "--beam_width", "3",
+            "--execution_rerank", "--max_steps", "1", "--quiet",
+            "--no_write_summary", *extra])
+        runs.append(Evaler(args, split, device="cpu").eval_run())
+    (loss_a, acc_a, hist_a), (loss_b, acc_b, hist_b) = runs
+    assert loss_a == loss_b and acc_a == acc_b
+    assert "rerank_changed_rate" in acc_b
+    assert set(hist_a) == set(hist_b)
+    for k in hist_a:
+        np.testing.assert_array_equal(hist_a[k], hist_b[k])

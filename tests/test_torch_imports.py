@@ -1,6 +1,7 @@
-"""demo2program_tpu_torch imports with jax, flax, optax, orbax, h5py and the
-JAX package demo2program_tpu blocked, and no module of it imports jax or
-the JAX package."""
+"""demo2program_tpu_torch imports with jax, flax, optax, orbax, h5py, cv2
+and the JAX package demo2program_tpu blocked, and no module of it imports
+jax, cv2 or the JAX package (the GPU machine has no cv2: frames are shrunk
+by utils/area_resize.py)."""
 
 import pathlib
 import re
@@ -9,7 +10,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "demo2program_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py",
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "cv2",
            "demo2program_tpu")
 
 _PROBE = f"""
@@ -38,11 +39,11 @@ def test_package_imports_with_jax_and_h5py_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every submodule was walked
+    assert int(proc.stdout.split()[-1]) >= 60  # every submodule was walked
 
 
 def test_no_module_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b"
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|cv2)\b"
                          r"|^\s*(import|from)\s+demo2program_tpu\b(?!_torch)",
                          re.MULTILINE)
     offenders = [str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")

@@ -86,8 +86,7 @@ def test_lstm_steps_per_forward(monkeypatch, variant, seen_steps,
 
 
 @pytest.mark.parametrize("what,field,value", [
-    ("compute_dtype", "compute_dtype", "bfloat16"),
-    ("vizdoom", "dataset_type", "vizdoom")])
+    ("compute_dtype", "compute_dtype", "bfloat16")])
 def test_unported_options_raise(what, field, value):
     with pytest.raises(NotImplementedError, match=what):
         InductionModel(_cfg(**{field: value}))

@@ -68,8 +68,7 @@ def test_lstm_steps_per_forward(monkeypatch):
 
 
 @pytest.mark.parametrize("what,field,value", [
-    ("compute_dtype", "compute_dtype", "bfloat16"),
-    ("vizdoom", "dataset_type", "vizdoom")])
+    ("compute_dtype", "compute_dtype", "bfloat16")])
 def test_unported_options_raise(what, field, value):
     with pytest.raises(NotImplementedError, match=what):
         SummarizerModel(_cfg(**{field: value}))

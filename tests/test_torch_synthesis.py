@@ -57,8 +57,7 @@ def test_lstm_steps_per_forward(monkeypatch):
 
 
 @pytest.mark.parametrize("what,field,value", [
-    ("compute_dtype", "compute_dtype", "bfloat16"),
-    ("vizdoom", "dataset_type", "vizdoom")])
+    ("compute_dtype", "compute_dtype", "bfloat16")])
 def test_unported_options_raise(what, field, value):
     cfg = dataclasses.replace(_tiny_cfg(), model=MODEL, **{field: value})
     with pytest.raises(NotImplementedError, match=what):

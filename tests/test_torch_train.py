@@ -234,25 +234,27 @@ def _random_stats(tree, seed=0):
 
 
 def run_train_parity(split, model_name, cell_impl, overrides=None,
-                     start_step=0):
+                     start_step=0, batches=None, extra_flags=()):
     """N_STEPS steps of the jitted JAX `make_step_fn` and of the port's
     train step of `model_name` from the same variables (JAX's initializers,
-    random BN running statistics) on the same batches; `overrides` replace
-    config fields that have no flag. Both step counters start at
-    `start_step` (it sets the scheduled-sampling probability; Adam keeps
-    its own count). With scheduled sampling the port draws what the JAX
-    step draws from its key. -> dict with the JAX gradients of step 1 and,
-    per step, both reports, the port's gradients and both state_dicts."""
+    random BN running statistics) on the same batches (default: the
+    device cache's compact batches of `split`); `overrides` replace config
+    fields that have no flag, `extra_flags` are trainer flags. Both step
+    counters start at `start_step` (it sets the scheduled-sampling
+    probability; Adam keeps its own count). With scheduled sampling the
+    port draws what the JAX step draws from its key. -> dict with the JAX
+    gradients of step 1 and, per step, both reports, the port's gradients
+    and both state_dicts."""
     args = trainer_cli.parse_args([
         "--device", "cpu", "--model", model_name, "--num_k", str(SPLIT.k),
         "--batch_size", str(BS), "--num_lstm_cell_units", "32",
-        "--cell_impl", cell_impl, "--learning_rate", str(LR)])
+        "--cell_impl", cell_impl, "--learning_rate", str(LR), *extra_flags])
     cfg = dataclasses.replace(config_from_dataset(args, split),
                               **(overrides or {}))
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
     jmodel = jax_model_class(model_name)(jcfg, train=True)
     tx = make_optimizer(jcfg, LR)
-    batches = _train_batches(
+    batches = batches or _train_batches(
         split, include_test=model_name == "induction_baseline")
     state = jax.jit(lambda b: create_train_state(
         jmodel, jcfg, tx, jax.random.key(0), b))(batches[0])

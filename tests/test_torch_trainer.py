@@ -248,6 +248,31 @@ def test_cuda_without_a_card_raises(split, tmp_path, monkeypatch):
         evaler_cli.main(["--dataset_path", missing])
 
 
+def test_trainer_on_the_card_requires_deterministic_mode(split, tmp_path,
+                                                         monkeypatch):
+    """The Trainer sets no process-wide mode: on the card it raises, before
+    any CUDA work, unless the entry point turned on deterministic
+    algorithms and set cuBLAS's workspace (train/step.py:
+    deterministic_cuda); either alone is not enough."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    assert not torch.are_deterministic_algorithms_enabled()
+    with pytest.raises(RuntimeError, match="deterministic kernels"):
+        Trainer(_args(tmp_path), split, split, device="cuda")
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(RuntimeError, match="CUBLAS_WORKSPACE_CONFIG"):
+            Trainer(_args(tmp_path), split, split, device="cuda")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    with pytest.raises(RuntimeError, match="deterministic algorithms: "
+                                           "False"):
+        Trainer(_args(tmp_path), split, split, device="cuda")
+
+
 def drive_clis(model_name, split, tmp_path, monkeypatch, records,
                eval_flags=()):
     """`trainer_cli.main` for 2 steps, its relaunch (which must log
