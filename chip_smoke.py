@@ -24,7 +24,7 @@ without them. It:
      way (`library_device_ms`) and computes the bound (`bound_ms`);
   4. slice phase: makes a seeded in-memory Karel split (k=10, test_k=5,
      T=20, L=45), saves a random-init FullModel at 512 units as a .pt,
-     evaluates 3 batches of 32 through the port's Evaler with
+     evaluates 2 batches of 32 through the port's Evaler with
      --checkpoint, checks that every LSTM step of the run went through the
      kernel (5*T + 2*L launches per batch), that the report is finite, that
      the model on the card agrees with the plain CPU path on a small batch,
@@ -33,18 +33,18 @@ without them. It:
      forward with the kernel against one with the plain LSTM step;
   5. train phase: builds the port's Trainer through trainer_cli's parser
      (--device cuda, units 512, bs 32, k=10, cell_impl pallas) on the same
-     split and trains 30 steps (log every 10, one test-sample eval,
-     checkpoint at 30); checks that every forward LSTM step went through
-     the kernel (30 x (4*T + L) + 190 per test-sample eval), that the loss
+     split and trains 20 steps (log every 10, one test-sample eval,
+     checkpoint at 20); checks that every forward LSTM step went through
+     the kernel (20 x (4*T + L) + 190 per test-sample eval), that the loss
      is finite and its mean over the last log window is below the first
      window's; compares one step's loss, grad norm and every gradient on
      the card (kernel forward, recomputing backward) with the CPU (plain)
      and with the card's plain step under autograd; evaluates the final
-     checkpoint through the Evaler (3 batches, 190 launches each); times
+     checkpoint through the Evaler (2 batches, 190 launches each); times
      forward, backward and optimizer of a step with the kernel against the
      plain step, in turns;
   6. baselines phase: the same for synthesis_baseline, summarizer and
-     induction_baseline (lstm encoder, luong attention), 20 steps each:
+     induction_baseline (lstm encoder, luong attention), 10 steps each:
      exact launches (steps x (T + L | 2T + L | T + T_a) + one test-sample
      eval x (T + 2L | 2T + 2L | T + 2T_a), T_a = T), a falling loss, one
      step's gradients card vs CPU (and kernel vs plain step for induction,
@@ -52,11 +52,11 @@ without them. It:
      the Evaler (finite; no program metrics for induction); prints each
      family's trainer s/step and eval s/batch;
   7. decode phase: loads the full model's checkpoint from the train phase
-     and evaluates 3 batches through the Evaler in each program decode
-     mode: beam (K = 5) with --execution_rerank, syntax_greedy and
-     syntax_sample; checks 190 launches per batch, that beam search runs
-     its program decoder at (B, D) = (bs * K, 512) = (160, 512), that
-     every syntax-constrained program parses (syntax accuracy 1.0), that
+     and evaluates it through the Evaler in each program decode mode:
+     beam (K = 5) with --execution_rerank over 2 batches, syntax_greedy
+     and syntax_sample over one; checks 190 launches per batch, that beam
+     search runs its program decoder at (B, D) = (bs * K, 512) = (160,
+     512), that every syntax-constrained program parses (syntax accuracy 1.0), that
      beam search with K = 1 decodes the greedy program on the card, that
      the beams agree between the card and the CPU on one batch (tokens and
      lengths exact, scores within 1e-3, on the rows with no beam choice
@@ -70,16 +70,16 @@ without them. It:
      seed whose sampled choices are none within 1e-3 of a tie);
   9. resume phase (Karel): in deterministic mode (train/step.py:
      deterministic_cuda, which the Trainer requires on the card), two
-     6-step runs from one seed and a run stopped at step 3 and resumed by
+     4-step runs from one seed and a run stopped at step 2 and resumed by
      a new Trainer must save equal checkpoints bit for bit; a fourth run
      with deterministic algorithms off for its steps gives the mode's cost
      in s/step, and eval s/batch is timed in both modes;
- 10. ViZDoom phase: generates an in-memory split in 8 shards over a
-     process pool (data/vizdoom_memory.py: 80x80x3 DoomLite frames, demos
-     of 2-8 frames, programs of at most 32 tokens, 25 seen and 10 unseen
-     demos a program; 64 distinct programs train, 32 evaluate), trains
-     the full model 20 steps through the Trainer (units 512, bs 32, k 25;
-     exact launches 20 x (4T + L) + (5T + 2L), a falling loss, gradients
+ 10. ViZDoom phase: on an in-memory split made in 8 shards by a pool of 4
+     processes while the phases above run (data/vizdoom_memory.py:
+     80x80x3 DoomLite frames, demos of 2-8 frames, programs of at most 32
+     tokens, 25 seen and 10 unseen demos a program; 64 distinct programs train, 32 evaluate), trains
+     the full model 10 steps through the Trainer (units 512, bs 32, k 25;
+     exact launches 10 x (4T + L) + (5T + 2L), a falling loss, gradients
      card vs CPU and kernel vs plain), evaluates the checkpoint greedily
      (launches at (800, 432), (800, 512) and (32, 512) by forward hooks,
      card vs CPU forward, K = 1 beam = greedy) and by beam K = 5 with
@@ -89,20 +89,44 @@ without them. It:
      ViZDoom, with a profile of a train step's device time per kernel in
      each mode; and warm-starts a new bs 8 run from a bs 32 run's
      checkpoint (`--checkpoint`, a new device cache), as a user does;
- 11. prints one JSON line describing the kernel: its time, the plain
+ 11. bf16 phase (`--compute_dtype bfloat16` through the same entry points):
+     trains the Karel full model 20 steps with checkpoints at 10 and 20
+     (exact launches, every one on the kernel's bf16 entry; a falling loss;
+     parameters, buffers, Adam's moments and the checkpoint all f32; one
+     step's loss, grad norm and gradients card vs CPU and kernel vs plain
+     within BF16_TOL, and bf16 against f32 on the card as a reading);
+     times bf16 beside f32 on that trainer in turns (step phases, the eval
+     forward, a profile of a step's device time and kernel count); sweeps
+     both checkpoints with evaler_cli's --sweep_steps in bf16, greedy and
+     then beam K = 5 with --execution_rerank (one Evaler and one summary
+     file a step; 190 bf16 launches a batch; every greedy and beam choice
+     card vs CPU wherever the CPU's is clear of a tie, the card decoding
+     along the CPU's prefix (ChoiceTape); decoded freely, every row's best
+     beam score; the planted rerank; ground truth at execution 1.0); holds
+     tools/eval_execution.py's batch_check on the card against the
+     scorer's verdicts for a batch of ground-truth and of greedy programs;
+     trains ViZDoom's full model 10 steps and the induction baseline 20,
+     both in bf16 (60 / 99 and 40 / 60 launches, gradients card vs CPU),
+     and takes one bf16 step of the induction variant that the JAX
+     package runs in bf16 (state features concatenated to the memory);
+     every phase prints its seconds (`phase <name>: ... s`);
+ 12. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
      or by operations) at every shape, with every path's launches, then
      the result line {"ok": true, "device": {...}} last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
-TF32 is off throughout: every comparison is against f32 references.
+TF32 is off throughout, and bf16 GEMMs reduce in f32
+(train/step.py:full_precision_matmuls).
 Deterministic algorithms are on throughout (off only where the resume
 phase times the default mode), as the entry points run them.
 """
 
+import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -116,25 +140,29 @@ from unittest import mock
 import numpy as np
 import torch
 
-from demo2program_tpu_torch.cli import trainer_cli
+from demo2program_tpu_torch.cli import evaler_cli, trainer_cli
 from demo2program_tpu_torch.cli.evaler_cli import parse_args
 from demo2program_tpu_torch.data.karel_memory import (
     SplitConfig, generate_split)
 from demo2program_tpu_torch.data import vizdoom_memory
 from demo2program_tpu_torch.data.vizdoom_generator import (
     VizdoomGeneratorConfig)
+from demo2program_tpu_torch.eval import evaler as evaler_module
 from demo2program_tpu_torch.eval.evaler import (
     Evaler, config_from_dataset, fetch_batch, save_checkpoint)
 from demo2program_tpu_torch.models import objective
+from demo2program_tpu_torch.models.common import COMPUTE_DTYPES
 from demo2program_tpu_torch.models.decoder import scheduled_noise
 from demo2program_tpu_torch.models.full import FullModel
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
+from demo2program_tpu_torch.tools import eval_execution
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.step import (
-    deterministic_cuda, forward_loss, global_norm, sampling_prob, to_device)
+    compute_call, deterministic_cuda, forward_loss, full_precision_matmuls,
+    global_norm, make_eval_step, make_train_step, sampling_prob, to_device)
 from demo2program_tpu_torch.train.trainer import Trainer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -144,7 +172,7 @@ OUT_DIR = os.path.join(ROOT, "build", "smoke")
 SEED = 1234
 UNITS = 512
 BATCH = 32
-N_BATCHES = 3
+N_BATCHES = 2
 SPLIT = SplitConfig(num_programs=BATCH * N_BATCHES, seed=SEED)
 # max |kernel - plain| <= ATOL + RTOL * |plain|. f32: both sum 1024
 # products in f32 in different orders; bf16: both compute in f32 from the
@@ -173,7 +201,7 @@ PASSES = {torch.float32: 3, torch.bfloat16: 1}
 # the model on the card vs the plain path on the CPU, same weights: f32
 # sums in other orders through 2*T + L LSTM steps
 MODEL_ATOL = 1e-3
-TRAIN_STEPS, TRAIN_LOG_STEP = 30, 10
+TRAIN_STEPS, TRAIN_LOG_STEP = 20, 10
 # one train step's gradients, card vs CPU and kernel vs plain step, same
 # weights and batch: per parameter, max |diff| <= GRAD_RTOL * max |g| +
 # GRAD_ATOL. f32 sums in other orders (cuDNN, cuBLAS, the kernel's 3xTF32
@@ -183,11 +211,46 @@ TRAIN_STEPS, TRAIN_LOG_STEP = 30, 10
 # that nearly cancel: small, with the absolute f32 error of the sum.
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-5
 LOSS_ATOL, NORM_RTOL = 1e-4, 1e-4
+F32_TOL = dict(loss_atol=LOSS_ATOL, norm_rtol=NORM_RTOL, grad_rtol=GRAD_RTOL,
+               grad_atol=GRAD_ATOL, global_rtol=1e-3)
+# the same comparisons of a bf16 step. Two correct bf16 programs round at
+# other points (cuBLAS or cuDNN against the CPU's loops, the kernel's f32
+# gates on the card against the plain version's), and a flipped bf16
+# rounding (2^-8 relative) of one activation moves everything after it:
+# they lie about as far apart as either lies from the f32 step (on the CPU,
+# the port against JAX: 1.0e-2 of the gradient's global norm,
+# tests/test_torch_bf16.py). A leaf may miss by BF16_TOL["grad_rtol"] of its
+# largest element (the biases that feed BatchNorm are sums of terms that
+# nearly cancel); the whole gradient by BF16_TOL["global_rtol"] of its norm.
+BF16_TOL = dict(loss_atol=5e-3, norm_rtol=5e-3, grad_rtol=0.35,
+                grad_atol=1e-4, global_rtol=0.02)
+STEP_TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL}
+BF16_FLAGS = ("--compute_dtype", "bfloat16")
+# bf16 train runs: steps, log window, and a checkpoint every BF16_CKPT steps
+BF16_STEPS, BF16_LOG_STEP, BF16_CKPT = 20, 10, 10
+BF16_VZD_STEPS, BF16_VZD_LOG_STEP = 10, 5
+BF16_INDUCTION_STEPS, BF16_INDUCTION_LOG_STEP = 20, 10
+# greedy and beam choices, card vs CPU in bf16: the two sides may round a
+# logit up and its rival down, so a greedy choice is held to the CPU's only
+# where the CPU's top two lie BF16_TIE_ULPS bf16 ulps of the larger apart
+# (program logits of 4 to 8: 0.125; the action decoder's, under 1: 0.016),
+# and a beam step's where the top K + 1 scores (f32 sums of bf16
+# log-probabilities of 2 to 8) lie BF16_TIE_GAP apart. A model of 20 steps
+# has a closer choice in nearly every row of 45 steps, so the card decodes
+# along the CPU's prefix (ChoiceTape) and every step counts on its own; at
+# least BF16_MIN_CLEAR of the choices of each kind must be that clear.
+# Teacher-forced logits within half the gap (read: 0.031, one ulp).
+# Decoded freely, every row's best beam score within BF16_SCORE_ATOL (sums
+# of 45 log-probabilities; read: 0.70).
+BF16_TIE_ULPS, BF16_TIE_GAP = 4, 0.125
+BF16_MIN_CLEAR, BF16_SCORE_ATOL = 0.25, 1.0
 GRAD_ITEMS = 8  # items of the card-vs-CPU step
 FAMILIES = ("synthesis_baseline", "summarizer", "induction_baseline")
-BASELINE_STEPS, BASELINE_LOG_STEP = 20, 10
-TIMING_REPS = 3  # of the turns kernel, plain, plain, kernel
-DECODE_MODES = ("beam", "syntax_greedy", "syntax_sample")
+BASELINE_STEPS, BASELINE_LOG_STEP = 10, 5
+TIMING_REPS = 2  # of the turns kernel, plain, plain, kernel
+# decode mode -> eval batches (a parsed program runs to its call budget in
+# the VM, so the constrained modes' batches are the long ones)
+DECODE_MODES = {"beam": N_BATCHES, "syntax_greedy": 1, "syntax_sample": 1}
 # beams card vs CPU: scores within SCORE_ATOL, on the rows where no beam
 # choice (the top K + 1 candidates of any step) lies within TIE_GAP of a
 # tie, since f32 sums in other orders may break such a tie either way
@@ -195,20 +258,39 @@ DECODE_MODES = ("beam", "syntax_greedy", "syntax_sample")
 SCORE_ATOL, TIE_GAP = 1e-3, 1e-4
 SS_STEPS, SS_LOG_STEP, SS_DECAY = 10, 5, 20
 # exact resume: runs of RESUME_STEPS steps, one stopped halfway
-RESUME_STEPS = 6
-PROFILE_STEPS = 3  # profiled ViZDoom train steps in each mode
+RESUME_STEPS = 4
+PROFILE_STEPS = 1  # profiled train steps in each mode or dtype
 # the ViZDoom split: VZD_SHARDS generator runs of VZD_PER_SHARD programs
 # each (seeds SEED, SEED + 1, ...), of which the first VZD_TRAIN distinct
 # programs train and the next VZD_TEST evaluate
 VZD_SHARDS, VZD_PER_SHARD = 8, 16
+VZD_WORKERS = 4  # generator processes, beside the phases before ViZDoom's
 VZD_TRAIN, VZD_TEST = 64, 32
-VZD_STEPS, VZD_LOG_STEP, VZD_EVAL_BATCHES = 20, 10, 1
+VZD_STEPS, VZD_LOG_STEP, VZD_EVAL_BATCHES = 10, 5, 1
 VZD_STAGE_STEPS, VZD_STAGE2_BATCH = 4, 8
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def timed(label, phase, /, *args, **kwargs):
+    """phase(*args, **kwargs), with its seconds printed."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def check_entry(cfg, what):
+    """Every kernel launch since the counts were set to 0 took the entry of
+    cfg.compute_dtype (d2p_fused_lstm_step_f32 or _bf16)."""
+    by_dtype = fused_lstm.fused_lstm_step.launches_by_dtype
+    want = COMPUTE_DTYPES[cfg.compute_dtype]
+    check(by_dtype[want] == fused_lstm.fused_lstm_step.launches
+          and all(n == 0 for d, n in by_dtype.items() if d != want),
+          f"{what}: launches by dtype {by_dtype}, all expected on {want}")
 
 
 def time_ms(fn, iters=100, warmup=10):
@@ -454,7 +536,7 @@ def slice_phase():
     evaler = Evaler(args, split)
     cfg = evaler.cfg
     per_batch = lstm_launches(cfg)[1]
-    fused_lstm.fused_lstm_step.launches = 0
+    fused_lstm.reset_launches()
     loss, acc, hist = evaler.eval_run()
     launches = fused_lstm.fused_lstm_step.launches
     timings = evaler.timings
@@ -505,32 +587,44 @@ def step_grads(model, cfg, batch, **kwargs):
             {n: p.grad.detach().cpu() for n, p in named})
 
 
-def compare_grads(what, a, b):
+def compare_grads(what, a, b, tol=F32_TOL, gate=True):
     """Largest |diff| of loss, grad norm and gradients between two
-    step_grads results, checked against the stated tolerances."""
+    step_grads results, and the global norm of the gradients' difference
+    over the gradient's; with `gate`, checked against the tolerances `tol`
+    (F32_TOL or BF16_TOL)."""
     loss_err = abs(a[0] - b[0])
     norm_err = abs(a[1] - b[1]) / abs(b[1])
     errs = {name: ((a[2][name] - g).abs().max().item(),
-                   GRAD_RTOL * g.abs().max().item() + GRAD_ATOL)
+                   tol["grad_rtol"] * g.abs().max().item()
+                   + tol["grad_atol"])
             for name, g in b[2].items()}
     worst = max(errs, key=lambda n: errs[n][0] / errs[n][1])
     ratio = errs[worst][0] / errs[worst][1]
+    global_err = math.sqrt(sum(((a[2][n] - g).double() ** 2).sum().item()
+                               for n, g in b[2].items())) / abs(b[1])
     out = {"loss_abs_diff": loss_err, "grad_norm_rel_diff": norm_err,
            "max_grad_abs_diff": max(e for e, _ in errs.values()),
            "worst_grad": worst, "worst_grad_abs_diff": errs[worst][0],
-           "worst_grad_over_bound": ratio}
+           "worst_grad_over_bound": ratio,
+           "global_grad_rel_diff": global_err}
     print(f"{what} " + json.dumps(out), flush=True)
-    check(loss_err <= LOSS_ATOL, f"{what}: loss differs by {loss_err}")
-    check(norm_err <= NORM_RTOL, f"{what}: grad norm differs by {norm_err}")
+    if not gate:
+        return out
+    check(loss_err <= tol["loss_atol"], f"{what}: loss differs by {loss_err}")
+    check(norm_err <= tol["norm_rtol"],
+          f"{what}: grad norm differs by {norm_err}")
     check(ratio <= 1.0, f"{what}: gradient of {worst} differs by "
-          f"{errs[worst][0]}, over {GRAD_RTOL} * max|g| + {GRAD_ATOL}")
+          f"{errs[worst][0]}, over {tol['grad_rtol']} * max|g| + "
+          f"{tol['grad_atol']}")
+    check(global_err <= tol["global_rtol"], f"{what}: the gradients differ "
+          f"by {global_err} of their global norm")
     return out
 
 
-def step_times(trainer, batch):
-    """Seconds of forward, backward and optimizer of one train step, each
-    ended by a synchronise."""
-    state, cfg = trainer.state, trainer.cfg
+def step_times(trainer, batch, cfg=None):
+    """Seconds of forward, backward and optimizer of one train step (of
+    `cfg`, default the trainer's), each ended by a synchronise."""
+    state, cfg = trainer.state, cfg or trainer.cfg
 
     def now():
         torch.cuda.synchronize()
@@ -603,7 +697,7 @@ def scheduled_kwargs(cpu_model, cfg, batch, step):
 
 def trainer_args(train_dir, steps, log_step, model_name="full",
                  dataset_type="karel", num_k=None, batch_size=None,
-                 test_sample_step=None, extra_flags=()):
+                 test_sample_step=None, extra_flags=(), ckpt_save_step=None):
     """trainer_cli's args of a run on the card at full width (num_k:
     SPLIT's, batch size: BATCH)."""
     num_k = num_k or SPLIT.k
@@ -617,17 +711,20 @@ def trainer_args(train_dir, steps, log_step, model_name="full",
         "--seed", str(SEED), "--max_steps", str(steps),
         "--log_step", str(log_step),
         "--test_sample_step", str(test_sample_step or steps),
-        "--ckpt_save_step", str(steps), *extra_flags])
+        "--ckpt_save_step", str(ckpt_save_step or steps), *extra_flags])
 
 
 def train_phase(split, model_name="full", steps=TRAIN_STEPS,
                 log_step=TRAIN_LOG_STEP, compare_plain=True,
                 time_steps=True, name=None, extra_flags=(),
                 check_falling=True, dataset_type="karel", num_k=None,
-                test_split=None, eval_batches=N_BATCHES):
+                test_split=None, eval_batches=N_BATCHES, ckpt_save_step=None,
+                after=None):
     """Train `model_name` through the Trainer (with `extra_flags`) on
-    `split`, check launches, loss and one step's gradients, evaluate the
-    checkpoint through the Evaler on `test_split` (default `split`)."""
+    `split`, check launches (their count and their dtype's entry), loss
+    and one step's gradients (tolerances by the run's compute dtype),
+    evaluate the checkpoint through the Evaler on `test_split` (default
+    `split`). `after(trainer)` may add its own readings to the summary."""
     name = name or model_name
     tag = "train" if name == "full" else name
     num_k = num_k or SPLIT.k
@@ -635,9 +732,11 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
     train_dir = os.path.join(OUT_DIR, "train_" + name)
     shutil.rmtree(train_dir, ignore_errors=True)
     args = trainer_args(train_dir, steps, log_step, model_name, dataset_type,
-                        num_k, extra_flags=extra_flags)
+                        num_k, extra_flags=extra_flags,
+                        ckpt_save_step=ckpt_save_step)
     trainer = Trainer(args, split, test_split, device=args.device)
     cfg = trainer.cfg
+    tol = STEP_TOL[cfg.compute_dtype]
     per_step, per_sample = lstm_launches(cfg)
     losses = []
     train_step = trainer.train_step
@@ -648,7 +747,7 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
         return report
 
     trainer.train_step = recorded
-    fused_lstm.fused_lstm_step.launches = 0
+    fused_lstm.reset_launches()
     t0 = time.perf_counter()
     trainer.train(max_steps=steps)
     torch.cuda.synchronize()
@@ -661,6 +760,7 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
           f"{model_name}: {launches} kernel launches in {steps} train steps "
           f"and {samples} test-sample evals, expected {steps} x "
           f"{per_step} + {samples} x {per_sample} = {expected}")
+    check_entry(cfg, f"{name} training")
     losses = torch.stack(losses).cpu().numpy()
     windows = losses.reshape(-1, log_step).mean(axis=1)
     check(np.isfinite(losses).all(), f"{name}: non-finite train loss")
@@ -686,14 +786,30 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
             t.to(trainer.device) for t in kw_cpu["noise"]))
     on_card = step_grads(trainer.model, cfg, card, **kw_card)
     vs_cpu = compare_grads(f"{tag}: card vs CPU", on_card, step_grads(
-        cpu_model, cfg, to_device(batch, "cpu"), **kw_cpu))
-    vs_plain = None
+        cpu_model, cfg, to_device(batch, "cpu"), **kw_cpu), tol)
+    vs_plain = vs_f32 = None
     if compare_plain:
         with mock.patch.object(fused_lstm, "fused_lstm_step",
                                fused_lstm.lstm_step_ref):
             plain = step_grads(trainer.model, cfg, card, **kw_card)
         vs_plain = compare_grads(f"{tag}: kernel vs plain step", on_card,
-                                 plain)
+                                 plain, tol)
+    if cfg.compute_dtype != "float32":  # a reading, not a gate
+        vs_f32 = compare_grads(
+            f"{tag}: {cfg.compute_dtype} vs float32 step on the card",
+            on_card, step_grads(
+                trainer.model, dataclasses.replace(
+                    cfg, compute_dtype="float32"), card, **kw_card),
+            tol, gate=False)
+    for what, tensors in (
+            ("parameter", trainer.model.parameters()),
+            ("buffer", trainer.model.buffers()),
+            ("Adam moment", (m for st in trainer.state.optimizer.state.values()
+                             for k, m in st.items() if k != "step")),
+            ("checkpointed tensor", checkpoint.model_state_dict(
+                checkpoint.load(ckpt)).values())):
+        check(all(t.dtype in (torch.float32, torch.int64) for t in tensors),
+              f"{name}: a {what} is not float32")
 
     eval_args = parse_args([
         "--model", model_name, "--dataset_type", dataset_type,
@@ -701,17 +817,18 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
         "--num_k", str(num_k), "--batch_size", str(BATCH),
         "--num_lstm_cell_units", str(UNITS), "--cell_impl", "pallas",
         "--max_steps", str(eval_batches), "--quiet", "--no_write_summary",
-        "--device", DEVICE])
+        "--device", DEVICE, "--compute_dtype", cfg.compute_dtype])
     evaler = Evaler(eval_args, test_split, device=eval_args.device)
-    for name, t in trainer.model.state_dict().items():
-        check(torch.equal(evaler.model.state_dict()[name], t),
-              f"the Evaler's {name} is not the trained one")
-    fused_lstm.fused_lstm_step.launches = 0
+    for key, t in trainer.model.state_dict().items():
+        check(torch.equal(evaler.model.state_dict()[key], t),
+              f"the Evaler's {key} is not the trained one")
+    fused_lstm.reset_launches()
     loss, acc, hist = evaler.eval_run()
     eval_launches = fused_lstm.fused_lstm_step.launches
     check(eval_launches == eval_batches * per_sample,
           f"{name}: {eval_launches} kernel launches in {eval_batches} "
           f"eval batches, expected {eval_batches} x {per_sample}")
+    check_entry(cfg, f"{name} eval")
     check(all(np.isfinite(v).all() for d in (loss, acc, hist)
               for v in d.values()), "non-finite eval of the checkpoint")
     has_program = any("program" in k for d in (loss, acc, hist) for k in d)
@@ -731,9 +848,14 @@ def train_phase(split, model_name="full", steps=TRAIN_STEPS,
         "eval_loss": loss["loss"], "eval_s_per_batch":
         evaler.timings["batch"], "eval_forward_s": evaler.timings["forward"],
         "eval_vm_s": evaler.timings["vm"],
-        "card_vs_cpu": vs_cpu, "kernel_vs_plain": vs_plain}
+        "card_vs_cpu": vs_cpu, "kernel_vs_plain": vs_plain,
+        "compute_dtype": cfg.compute_dtype}
+    if vs_f32:
+        summary["vs_f32_step"] = vs_f32
     if time_steps:
         summary["step_s"] = time_train_steps(trainer, trainer.cache.batch(0))
+    if after:
+        summary.update(after(trainer))
     print(f"{tag} " + json.dumps(summary), flush=True)
     return summary
 
@@ -749,13 +871,13 @@ def baselines_phase(split):
             for name in FAMILIES}
 
 
-def decode_evaler(split, ckpt, mode):
+def decode_evaler(split, ckpt, mode, batches):
     """The Evaler of the trained full model in decode mode `mode` (beam:
-    K = BEAM_WIDTH, with --execution_rerank)."""
+    K = BEAM_WIDTH, with --execution_rerank) over `batches` batches."""
     flags = ["--model", "full", "--dataset_path", "in-memory",
              "--checkpoint", ckpt, "--num_k", str(SPLIT.k),
              "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
-             "--cell_impl", "pallas", "--max_steps", str(N_BATCHES),
+             "--cell_impl", "pallas", "--max_steps", str(batches),
              "--quiet", "--no_write_summary", "--device", DEVICE,
              "--unroll_type", mode, "--beam_width", str(BEAM_WIDTH)]
     if mode == "beam":
@@ -797,9 +919,27 @@ def k1_beam_is_greedy(model, cfg, batch):
           "beam search with K = 1 does not decode the greedy program")
 
 
+def planted_rerank(evaler, raw, batch, out):
+    """With the ground truth planted as beam 2 of the card's beams `out`,
+    the rerank's pick reproduces every seen demo -> picks per beam."""
+    tokens = out["beam_tokens"].cpu().numpy().copy()
+    lengths = out["beam_lengths"].cpu().numpy().copy()
+    tokens[:, 2] = raw["program_tokens"]
+    lengths[:, 2] = raw["program_len"][:, 0]
+    pick = evaler.scorer.rerank_pick(tokens, lengths, batch)
+    picked = np.arange(BATCH)
+    nc, _ = evaler.scorer.execution_compact(
+        tokens[picked, pick], lengths[picked, pick],
+        np.zeros(BATCH, np.float32), batch)
+    check((nc == evaler.cfg.k).all(), "a reranked beam does not reproduce "
+          "its seen demos with the ground truth planted as beam 2")
+    return np.bincount(pick, minlength=BEAM_WIDTH).tolist()
+
+
 def beam_checks(evaler, split):
-    """On the first batch: K = 1 beam search vs greedy on the card; the
-    beams on the card vs the CPU; the planted rerank."""
+    """On the first batch, in f32: K = 1 beam search vs greedy on the card;
+    the beams on the card vs the CPU on the rows with no beam choice within
+    TIE_GAP of a tie; the planted rerank."""
     cfg, model, dev = evaler.cfg, evaler.model, evaler.device
     raw = split.get_batch_compact(split.ids[:BATCH])
     batch = to_device(raw, dev)
@@ -825,28 +965,16 @@ def beam_checks(evaler, split):
           "beam tokens or lengths differ between the card and the CPU")
     check(score_err <= SCORE_ATOL,
           f"beam scores differ by {score_err} between the card and the CPU")
-
-    tokens = out_k["beam_tokens"].cpu().numpy().copy()
-    lengths = out_k["beam_lengths"].cpu().numpy().copy()
-    tokens[:, 2] = raw["program_tokens"]
-    lengths[:, 2] = raw["program_len"][:, 0]
-    pick = evaler.scorer.rerank_pick(tokens, lengths, batch)
-    picked = np.arange(BATCH)
-    nc, _ = evaler.scorer.execution_compact(
-        tokens[picked, pick], lengths[picked, pick],
-        np.zeros(BATCH, np.float32), batch)
-    check((nc == cfg.k).all(), "a reranked beam does not reproduce its "
-          "seen demos with the ground truth planted as beam 2")
     return {"k1_equals_greedy": True, "cpu_rows_compared": n_rows,
             "cpu_score_max_abs_diff": score_err,
-            "planted_picks": np.bincount(pick, minlength=BEAM_WIDTH).tolist()}
+            "planted_picks": planted_rerank(evaler, raw, batch, out_k)}
 
 
 def decode_phase(split, ckpt):
     """Evaluate the trained full model's checkpoint in each decode mode."""
     results = {}
-    for mode in DECODE_MODES:
-        evaler = decode_evaler(split, ckpt, mode)
+    for mode, batches in DECODE_MODES.items():
+        evaler = decode_evaler(split, ckpt, mode, batches)
         per_batch = lstm_launches(evaler.cfg)[1]
         shapes = {}  # (B, D) of the cells' launches -> the first's plan
 
@@ -856,14 +984,14 @@ def decode_phase(split, ckpt):
         hooks = [m.register_forward_hook(record)
                  for m in evaler.model.modules()
                  if isinstance(m, fused_lstm.FusedLSTMCell)]
-        fused_lstm.fused_lstm_step.launches = 0
+        fused_lstm.reset_launches()
         loss, acc, hist = evaler.eval_run()
         launches = fused_lstm.fused_lstm_step.launches
         for hook in hooks:
             hook.remove()
-        check(launches == N_BATCHES * per_batch,
-              f"{mode}: {launches} kernel launches in {N_BATCHES} batches, "
-              f"expected {N_BATCHES} x {per_batch}")
+        check(launches == batches * per_batch,
+              f"{mode}: {launches} kernel launches in {batches} batches, "
+              f"expected {batches} x {per_batch}")
         check(all(np.isfinite(v).all() for d in (loss, acc, hist)
                   for v in d.values()), f"{mode}: non-finite report")
         t = evaler.timings
@@ -950,28 +1078,80 @@ def mode_profile(trainer, steps=PROFILE_STEPS, top=8):
     for mode in (True, False):
         torch.use_deterministic_algorithms(mode)
         try:
-            trainer.train_step(batch)
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(steps):
-                    trainer.train_step(batch)
-                torch.cuda.synchronize()
+            per_step[mode], _ = profile_steps(trainer.train_step, batch,
+                                              steps)
         finally:
             torch.use_deterministic_algorithms(True)
-        # the kernels' rows only: an operator's row repeats the device
-        # time of the kernels it launched
-        per_step[mode] = {
-            e.key: e.self_device_time_total / steps
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
     on, off = per_step[True], per_step[False]
-    names = sorted(set(on) | set(off),
-                   key=lambda n: -abs(on.get(n, 0) - off.get(n, 0)))
     return {"on_us": sum(on.values()), "off_us": sum(off.values()),
-            "ops": [[n[:120], on.get(n, 0), off.get(n, 0)]
-                    for n in names[:top]]}
+            "ops": most_moved(on, off, top)}
+
+
+def profile_steps(step, batch, steps):
+    """`steps` profiled calls of step(batch) after one unprofiled call ->
+    ({kernel: device µs a call}, kernels launched a call)."""
+    step(batch)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+    # the kernels' rows only: an operator's row repeats the device time of
+    # the kernels it launched
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return ({e.key: e.self_device_time_total / steps for e in rows},
+            sum(e.count for e in rows) / steps)
+
+
+def most_moved(a, b, top):
+    """[[kernel, µs in a, µs in b], ...] of the `top` kernels whose device
+    time a call moves most between two profile_steps results."""
+    names = sorted(set(a) | set(b),
+                   key=lambda n: -abs(a.get(n, 0) - b.get(n, 0)))
+    return [[n[:120], a.get(n, 0), b.get(n, 0)] for n in names[:top]]
+
+
+def dtype_readings(trainer, eval_batch, steps=PROFILE_STEPS, top=8):
+    """bf16 beside f32 on one trainer's weights, in turns bf16, f32, f32,
+    bf16: the train step's forward / backward / optimizer seconds
+    (step_times), a profile of its device time and kernel count
+    (profile_steps), and the eval step's seconds on `eval_batch` (greedy
+    forward and objective; no scoring). The steps update the weights."""
+    cfgs = {d: dataclasses.replace(trainer.cfg, compute_dtype=d)
+            for d in ("bfloat16", "float32")}
+    name = trainer.cfg.model
+    batch = trainer.cache.batch(0)
+    eval_steps = {d: make_eval_step(trainer.model, c, name)
+                  for d, c in cfgs.items()}
+    train_steps = {d: make_train_step(trainer.state, c, name)
+                   for d, c in cfgs.items()}
+    times = {d: [] for d in cfgs}
+    evals = {d: [] for d in cfgs}
+    for d in ("bfloat16", "float32", "float32", "bfloat16"):
+        step_times(trainer, batch, cfgs[d])  # a warm-up step
+        times[d] += [step_times(trainer, batch, cfgs[d])
+                     for _ in range(steps)]
+        eval_steps[d](eval_batch)
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eval_steps[d](eval_batch)
+            torch.cuda.synchronize()
+            evals[d].append(time.perf_counter() - t0)
+    profiles = {d: profile_steps(train_steps[d], batch, steps) for d in cfgs}
+    bf16, f32 = profiles["bfloat16"], profiles["float32"]
+    return {"card": CARD,
+            "step_s": {d: {k: float(np.median([r[k] for r in rs]))
+                           for k in rs[0]} for d, rs in times.items()},
+            "eval_forward_s": {d: float(np.median(v))
+                               for d, v in evals.items()},
+            "step_device_us": {"bfloat16": sum(bf16[0].values()),
+                               "float32": sum(f32[0].values())},
+            "step_kernels": {"bfloat16": bf16[1], "float32": f32[1]},
+            "ops_bf16_f32": most_moved(bf16[0], f32[0], top)}
 
 
 def resume_phase(tag, split, test_split, dataset_type="karel",
@@ -1042,7 +1222,7 @@ def vizdoom_split():
     distinct programs, test split of the next VZD_TEST, seconds)."""
     cfg = VizdoomGeneratorConfig(num_demo_per_program=VZD_K,
                                  num_test_demo_per_program=VZD_TEST_K)
-    workers = min(VZD_SHARDS, os.cpu_count() or 1)
+    workers = min(VZD_WORKERS, os.cpu_count() or 1)
     t0 = time.perf_counter()
     split = vizdoom_memory.generate_split(
         cfg, num_programs=VZD_PER_SHARD,
@@ -1080,12 +1260,11 @@ def vizdoom_evaler(ckpt, test_split, mode="greedy", num_k=VZD_K):
                   device=args.device)
 
 
-def vizdoom_phase():
-    """The ViZDoom full model on the card at units 512, bs 32, k 25: train
-    through the Trainer, evaluate greedy and beam + rerank through the
-    Evaler, hold the engine oracle, exact resume and the bs 32 -> 8 warm
-    start."""
-    train_split, test_split, gen_s = vizdoom_split()
+def vizdoom_phase(train_split, test_split, gen_s):
+    """The ViZDoom full model on the card at units 512, bs 32, k 25 on the
+    splits of vizdoom_split: train through the Trainer, evaluate greedy and
+    beam + rerank through the Evaler, hold the engine oracle, exact resume
+    and the bs 32 -> 8 warm start."""
     train = train_phase(train_split, steps=VZD_STEPS, log_step=VZD_LOG_STEP,
                         time_steps=False, name="vizdoom",
                         dataset_type="vizdoom", num_k=VZD_K,
@@ -1138,7 +1317,7 @@ def vizdoom_phase():
     # model reading 20 of them (so --rerank_k re-reads the other 5)
     beam = vizdoom_evaler(ckpt, test_split, "beam", num_k=VZD_K - 5)
     per_batch = lstm_launches(beam.cfg)[1]
-    fused_lstm.fused_lstm_step.launches = 0
+    fused_lstm.reset_launches()
     b_loss, b_acc, b_hist = beam.eval_run()
     b_launches = fused_lstm.fused_lstm_step.launches
     check(b_launches == VZD_EVAL_BATCHES * per_batch,
@@ -1200,6 +1379,353 @@ def vizdoom_phase():
     return res
 
 
+class ChoiceTape:
+    """Stands in for torch.argmax and torch.topk while a model decodes. On
+    the CPU (`record`) it keeps every call's choice and whether it was
+    clear: argmax (greedy ids, over bf16 logits), the top 2 lie at least
+    `tie_ulps` bf16 ulps of the larger apart; topk (beam search, over f32
+    sums of log-probabilities), the smallest gap among the top k + 1, the
+    choices and the first one dropped, is at least `tie_gap`. On the card
+    (`replay`) it takes the card's own choice of the same call, counts the
+    rows where that differs from the CPU's although the CPU's was clear,
+    and hands back the CPU's choice (topk: with the CPU's scores), so the
+    card decodes on along the CPU's prefix and every step of every row is
+    compared on its own: one near-tie costs its step, not the rest of its
+    row."""
+
+    def __init__(self, tie_ulps, tie_gap):
+        self.tie_ulps, self.tie_gap = tie_ulps, tie_gap
+        self.calls = []  # (kind, choice, values or None, clear rows)
+        self.cursor = 0
+        self.counts = {kind: {"choices": 0, "compared": 0, "mismatches": 0}
+                       for kind in ("argmax", "topk")}
+        self.value_err = 0.0
+        self._argmax, self._topk = torch.argmax, torch.topk
+
+    def record(self):
+        return self._patched(self._record_argmax, self._record_topk)
+
+    def replay(self):
+        self.cursor = 0
+        return self._patched(self._replay_argmax, self._replay_topk)
+
+    @contextlib.contextmanager
+    def _patched(self, argmax, topk):
+        with mock.patch.object(torch, "argmax", argmax), \
+                mock.patch.object(torch, "topk", topk):
+            yield self
+
+    def _record_argmax(self, x, dim):
+        top = self._topk(x.float(), 2, dim=dim).values
+        choice = self._argmax(x, dim=dim)
+        first, second = top.select(dim, 0), top.select(dim, 1)
+        # a bf16 value in [2^e, 2^(e+1)) has an ulp of 2^(e-7); below 2^-4
+        # the ulp of 2^-4 stands in
+        ulp = torch.exp2(torch.floor(torch.log2(
+            first.abs().clamp_min(2.0 ** -4))) - 7)
+        clear = (first - second) >= self.tie_ulps * ulp
+        self.calls.append(("argmax", choice, None, clear))
+        return choice
+
+    def _record_topk(self, x, k, dim):
+        top = self._topk(x.float(), k + 1, dim=dim).values
+        values, choice = self._topk(x, k, dim=dim)
+        clear = (top.narrow(dim, 0, k) - top.narrow(dim, 1, k)).amin(
+            dim=dim) >= self.tie_gap
+        self.calls.append(("topk", choice, values, clear))
+        return values, choice
+
+    def _next(self, kind, own):
+        """The taped call that matches the card's call `own`; counts the
+        rows where the card chose otherwise although the CPU's choice was
+        clear."""
+        taped_kind, choice, values, clear = self.calls[self.cursor]
+        self.cursor += 1
+        check(taped_kind == kind and choice.shape == own.shape,
+              f"the card's {kind} call {self.cursor} is not the CPU's")
+        same = own.cpu() == choice
+        same = same if same.dim() == clear.dim() else same.all(dim=-1)
+        counts = self.counts[kind]
+        counts["choices"] += clear.numel()
+        counts["compared"] += int(clear.sum())
+        counts["mismatches"] += int((clear & ~same).sum())
+        return choice.to(own.device), values
+
+    def _replay_argmax(self, x, dim):
+        return self._next("argmax", self._argmax(x, dim=dim))[0]
+
+    def _replay_topk(self, x, k, dim):
+        choice, values = self._next("topk", self._topk(x, k, dim=dim)[1])
+        own = x.gather(dim, choice).float().cpu()
+        self.value_err = max(self.value_err,
+                             (own - values.float()).abs().max().item())
+        return values.to(x.device, x.dtype), choice
+
+    def summary(self):
+        return dict(self.counts, topk_value_max_abs_diff=self.value_err)
+
+
+def choices_card_vs_cpu(evaler, split, decode_mode="greedy"):
+    """Every decode choice of the first batch (the program decoder's greedy
+    ids or beam choices, the action decoder's greedy ids), the card
+    (kernel) vs the CPU (plain) in the Evaler's compute dtype, step by step
+    with the CPU's prefix forced on the card (ChoiceTape): wherever the
+    CPU's choice is clear the card's own choice must be the same, and at
+    least BF16_MIN_CLEAR of the choices of each kind must be that clear
+    -> (readings, the CPU's outputs)."""
+    cfg, model = evaler.cfg, evaler.model
+    raw = split.get_batch_compact(split.ids[:BATCH])
+    cpu_model = FullModel(cfg)
+    cpu_model.load_state_dict(model.state_dict())
+    on_cpu = expand_batch(to_device(raw, "cpu"), cfg)
+    on_card = expand_batch(to_device(raw, evaler.device), cfg)
+    tape = ChoiceTape(BF16_TIE_ULPS, BF16_TIE_GAP)
+    with torch.no_grad():
+        with tape.record():
+            out_c = compute_call(cpu_model.eval(), cfg, on_cpu,
+                                 decode_mode=decode_mode)
+        with tape.replay():
+            out_k = compute_call(model, cfg, on_card,
+                                 decode_mode=decode_mode)
+    check(tape.cursor == len(tape.calls),
+          f"the card made {tape.cursor} choices, the CPU {len(tape.calls)}")
+    res = tape.summary()
+    what = f"{decode_mode} card vs CPU ({cfg.compute_dtype})"
+    for kind, gap in (("argmax", f"{BF16_TIE_ULPS} bf16 ulps"),
+                      ("topk", f"{BF16_TIE_GAP}")):
+        n = res[kind]
+        if not n["choices"]:
+            continue
+        print(f"{what}: {n['compared']} of {n['choices']} {kind} choices "
+              f"are clear by {gap} on the CPU and compared with the card's "
+              f"own, the CPU's prefix forced: {n['mismatches']} differ",
+              flush=True)
+        check(n["compared"] >= BF16_MIN_CLEAR * n["choices"],
+              f"{what}: only {n['compared']} of {n['choices']} {kind} "
+              f"choices are clear of a tie")
+        check(n["mismatches"] == 0, f"{what}: {n['mismatches']} {kind} "
+              f"choices differ between the card and the CPU outside ties")
+    for key in ("greedy_program_tokens", "greedy_program_len",
+                "greedy_action_tokens", "beam_tokens", "beam_lengths"):
+        if key in out_c:
+            check(torch.equal(out_k[key].cpu(), out_c[key]),
+                  f"{what}: {key} differ along the forced prefix")
+    err = (out_k["pred_program_logits"].float().cpu()
+           - out_c["pred_program_logits"].float()).abs().max().item()
+    print(f"{what}: teacher-forced program logits differ by at most "
+          f"{err:.3g}; a step's beam scores by at most "
+          f"{res['topk_value_max_abs_diff']:.3g}", flush=True)
+    check(2 * err <= BF16_TIE_GAP, f"{what}: teacher-forced program logits "
+          f"differ by {err}")
+    return dict(res, pred_logits_max_abs_diff=err), out_c
+
+
+def free_beams_vs_cpu(evaler, split, out_c):
+    """The card's beams of the first batch decoded freely (no prefix
+    forced), in the Evaler's compute dtype: every row's best beam score
+    within BF16_SCORE_ATOL of the CPU's (`out_c`, of choices_card_vs_cpu);
+    the planted rerank."""
+    cfg = evaler.cfg
+    raw = split.get_batch_compact(split.ids[:BATCH])
+    batch = to_device(raw, evaler.device)
+    with torch.no_grad():
+        out_k = compute_call(evaler.model, cfg, expand_batch(batch, cfg),
+                             decode_mode="beam")
+    best_err = (out_k["beam_scores"].cpu().max(dim=1).values
+                - out_c["beam_scores"].max(dim=1).values).abs().max().item()
+    same = (out_k["beam_tokens"].cpu() == out_c["beam_tokens"]).all(
+        dim=-1).all(dim=-1)
+    print(f"beam card vs CPU ({cfg.compute_dtype}), decoded freely: best "
+          f"beam scores of all {BATCH} rows differ by at most {best_err:.3g};"
+          f" {int(same.sum())} rows decode the same {BEAM_WIDTH} beams",
+          flush=True)
+    check(best_err <= BF16_SCORE_ATOL, f"best beam scores differ by "
+          f"{best_err} between the card and the CPU")
+    return {"free_best_score_max_abs_diff": best_err,
+            "free_rows_equal": int(same.sum()),
+            "planted_picks": planted_rerank(evaler, raw, batch, out_k)}
+
+
+def bf16_sweep(split, train_dir, mode):
+    """`evaler_cli --sweep_steps` over the bf16 run's checkpoints in bf16,
+    greedy or beam K = BEAM_WIDTH with --execution_rerank: one Evaler for
+    both steps, one summary file a step, exact launches on the bf16 entry
+    -> (the Evaler, readings)."""
+    steps = list(range(BF16_CKPT, BF16_STEPS + 1, BF16_CKPT))
+    summary = os.path.join(train_dir, f"sweep_{mode}.txt")
+    flags = ["--model", "full", "--dataset_path", "in-memory",
+             "--train_dir", train_dir, "--num_k", str(SPLIT.k),
+             "--batch_size", str(BATCH), "--num_lstm_cell_units", str(UNITS),
+             "--cell_impl", "pallas", "--max_steps", str(N_BATCHES),
+             "--quiet", "--device", DEVICE, "--unroll_type", mode,
+             "--sweep_steps", ",".join(map(str, steps)),
+             "--summary_file", summary, *BF16_FLAGS]
+    if mode == "beam":
+        flags += ["--beam_width", str(BEAM_WIDTH), "--execution_rerank"]
+    args = parse_args(flags)
+    built = []
+    init = Evaler.__init__
+
+    def recording_init(self, *a, **kw):
+        built.append(self)
+        init(self, *a, **kw)
+
+    fused_lstm.reset_launches()
+    with mock.patch.object(evaler_module.Evaler, "__init__", recording_init):
+        results = evaler_cli.run_sweep(args, split, DEVICE)
+    launches = fused_lstm.fused_lstm_step.launches
+    check(sorted(results) == steps, f"sweep {mode}: evaluated "
+          f"{sorted(results)}, expected {steps}")
+    check(len(built) == 1, f"sweep {mode}: {len(built)} Evalers were built")
+    evaler = built[0]
+    per_batch = lstm_launches(evaler.cfg)[1]
+    check(launches == len(steps) * N_BATCHES * per_batch,
+          f"sweep {mode}: {launches} launches, expected {len(steps)} x "
+          f"{N_BATCHES} x {per_batch}")
+    check_entry(evaler.cfg, f"sweep {mode}")
+    for step in steps:
+        path = f"{summary}.{step}"
+        check(os.path.exists(path) and f"ckpt/{step}.pt" in open(path).read(),
+              f"sweep {mode}: no summary of step {step} at {path}")
+        check(all(np.isfinite(v).all() for d in results[step]
+                  for v in d.values()), f"sweep {mode}: non-finite report")
+    check(evaler.checkpoint.endswith(f"{steps[-1]}.pt"),
+          f"sweep {mode}: the Evaler ended at {evaler.checkpoint}")
+    t = evaler.timings
+    return evaler, {
+        "mode": mode, "steps": steps, "launches": launches,
+        "s_per_batch": t["batch"], "forward_s": t["forward"],
+        "vm_s": t["vm"],
+        "loss": {s: results[s][0]["loss"] for s in steps},
+        "greedy_program_syntax_acc": {
+            s: results[s][1]["greedy_program_syntax_acc"] for s in steps}}
+
+
+def tool_agrees_with_scorer(evaler, split):
+    """tools/eval_execution.py:batch_check on the card over one batch of
+    ground-truth programs and of the model's greedy programs: the number of
+    seen demos each program reproduces equals the Evaler's scorer's."""
+    cfg, vocab = evaler.cfg, evaler.vocab
+    raw = split.get_batch_compact(split.ids[:BATCH])
+    batch = to_device(raw, evaler.device)
+    _, evals = evaler.eval_step(batch)
+    full = expand_batch(batch, cfg)
+    demos = list(full["s_h"].to(torch.uint8).cpu().numpy())
+    demo_lens = raw["demo_len"].astype(np.int32)
+    out = {}
+    for what, tokens, lens in (
+            ("ground_truth", raw["program_tokens"],
+             raw["program_len"][:, 0].astype(int)),
+            ("greedy", evals["greedy_tokens"].cpu().numpy(),
+             evals["greedy_len"].cpu().numpy().astype(int))):
+        programs = [vocab.intseq2str(t[:n]) for t, n in zip(tokens, lens)]
+        checked = eval_execution.batch_check(
+            programs, list(raw["id"]), demos, demo_lens, vocab, device=DEVICE)
+        got = np.array([c.num_correct for c in checked])
+        want, _ = evaler.scorer.execution_compact(
+            torch.as_tensor(tokens, device=evaler.device),
+            torch.as_tensor(lens, device=evaler.device),
+            np.zeros(BATCH, np.float32), batch)
+        check(np.array_equal(got, np.asarray(want).astype(int)),
+              f"batch_check and the scorer disagree on the {what} programs: "
+              f"{got.tolist()} vs {np.asarray(want).tolist()}")
+        out[what] = {"all_correct": float((got == cfg.k).mean()),
+                     "syntax": float(np.mean([c.syntax for c in checked]))}
+    check(out["ground_truth"]["all_correct"] == 1.0,
+          "batch_check: a ground-truth program misses a seen demo")
+    return out
+
+
+def induction_concat_step(split):
+    """One bf16 train step of the induction baseline with the state
+    features concatenated to its attention memory
+    (ModelConfig.concat_state_feature_direct_prediction, no CLI flag): the
+    variant the JAX package traces in bf16, which tests/test_torch_bf16.py
+    holds against it on the CPU. Card (kernel) vs CPU (plain) within
+    BF16_TOL, every launch on the bf16 entry."""
+    args = trainer_args(os.path.join(OUT_DIR, "unused"), 1, 1,
+                        "induction_baseline", extra_flags=BF16_FLAGS)
+    cfg = dataclasses.replace(config_from_dataset(args, split),
+                              concat_state_feature_direct_prediction=True)
+    cpu_model = get_model_class(cfg.model)(cfg)
+    init_parameters(cpu_model, torch.Generator().manual_seed(SEED))
+    batch = fetch_batch(split, split.ids[:GRAD_ITEMS], "karel")
+    fused_lstm.reset_launches()
+    on_card = step_grads(copy.deepcopy(cpu_model).to(DEVICE), cfg,
+                         to_device(batch, DEVICE))
+    launches = fused_lstm.fused_lstm_step.launches
+    check(launches == lstm_launches(cfg)[0], f"induction, concatenated "
+          f"state features: {launches} launches in one step")
+    check_entry(cfg, "induction, concatenated state features")
+    return dict(compare_grads(
+        "induction_bf16, concatenated state features: card vs CPU", on_card,
+        step_grads(cpu_model, cfg, to_device(batch, "cpu")), BF16_TOL),
+        launches=launches)
+
+
+def bf16_phase(split, vizdoom_splits):
+    """`--compute_dtype bfloat16` end to end on the card at units 512, bs
+    32: train the Karel full model through the Trainer (two checkpoints),
+    sweep the checkpoints with evaler_cli's --sweep_steps (greedy, then
+    beam + rerank), re-score one batch with tools/eval_execution.py's
+    batch_check, and train ViZDoom's full model and the induction baseline;
+    every LSTM step on the kernel's bf16 entry."""
+    eval_batch = to_device(split.get_batch_compact(split.ids[:BATCH]), DEVICE)
+    train = timed(
+        "bf16 train", train_phase,
+        split, steps=BF16_STEPS, log_step=BF16_LOG_STEP, time_steps=False,
+        name="full_bf16", extra_flags=BF16_FLAGS, ckpt_save_step=BF16_CKPT,
+        after=lambda trainer: {"bf16_vs_f32": timed(
+            "bf16 readings", dtype_readings, trainer, eval_batch)})
+    train_dir = os.path.dirname(os.path.dirname(train["checkpoint"]))
+    saved = checkpoint.checkpoint_steps(train_dir)
+    check(saved == list(range(BF16_CKPT, BF16_STEPS + 1, BF16_CKPT)),
+          f"bf16: checkpoints at {saved}")
+
+    evaler, greedy = timed("bf16 greedy sweep", bf16_sweep, split, train_dir,
+                           "greedy")
+    greedy["card_vs_cpu"], _ = timed("bf16 greedy choices",
+                                     choices_card_vs_cpu, evaler, split)
+    seen, test, _ = ground_truth_execution(evaler, split, 1)
+    check(seen == 1.0 and test == 1.0,
+          "bf16: ground-truth programs do not reproduce their demos")
+    tool = tool_agrees_with_scorer(evaler, split)
+    print("bf16 sweep " + json.dumps(greedy), flush=True)
+    beam_evaler, beam = timed("bf16 beam sweep", bf16_sweep, split,
+                              train_dir, "beam")
+    beam["card_vs_cpu"], cpu_beams = timed(
+        "bf16 beam choices", choices_card_vs_cpu, beam_evaler, split, "beam")
+    beam.update(free_beams_vs_cpu(beam_evaler, split, cpu_beams))
+    print("bf16 sweep " + json.dumps(beam), flush=True)
+
+    vz_train, vz_test, _ = vizdoom_splits
+    vz_batch = to_device(fetch_batch(vz_test, vz_test.ids[:BATCH], "vizdoom"),
+                         DEVICE)
+    vizdoom = timed(
+        "bf16 vizdoom", train_phase,
+        vz_train, steps=BF16_VZD_STEPS, log_step=BF16_VZD_LOG_STEP,
+        time_steps=False, compare_plain=False, name="vizdoom_bf16",
+        dataset_type="vizdoom", num_k=VZD_K, test_split=vz_test,
+        eval_batches=VZD_EVAL_BATCHES, extra_flags=BF16_FLAGS,
+        after=lambda trainer: {"bf16_vs_f32": timed(
+            "bf16 vizdoom readings", dtype_readings, trainer, vz_batch)})
+    induction = timed(
+        "bf16 induction", train_phase,
+        split, "induction_baseline", BF16_INDUCTION_STEPS,
+        BF16_INDUCTION_LOG_STEP, time_steps=False, name="induction_bf16",
+        extra_flags=BF16_FLAGS)
+    res = {"card": CARD, "tool_vs_scorer": tool,
+           "induction_concat_step": induction_concat_step(split),
+           "ground_truth_execution": {"seen": seen, "unseen": test},
+           "launches": {"train": train["launches"],
+                        "sweep_greedy": greedy["launches"],
+                        "sweep_beam": beam["launches"],
+                        "vizdoom_train": vizdoom["launches"],
+                        "induction_train": induction["launches"]}}
+    print("bf16 " + json.dumps(res), flush=True)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1207,8 +1733,7 @@ def main():
     # as the entry points do, before any CUDA work (cuBLAS reads its
     # workspace config when its first handle is made)
     deterministic_cuda()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    full_precision_matmuls()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -1216,22 +1741,31 @@ def main():
     CARD = smi.stdout.strip()
     print(CARD, flush=True)
 
-    build_phase()
-    rows = kernel_phase()
-    split, launches = slice_phase()
-    train = train_phase(split)
-    baselines = baselines_phase(split)
-    decode = decode_phase(split, train["checkpoint"])
-    ss = train_phase(split, steps=SS_STEPS, log_step=SS_LOG_STEP,
-                     compare_plain=False, time_steps=False,
-                     name="full_scheduled", check_falling=False,
-                     extra_flags=("--scheduled_sampling",
-                                  "--scheduled_sampling_decay_steps",
-                                  str(SS_DECAY)))
-    resume = resume_phase("karel", split, split)
-    vizdoom = vizdoom_phase()
+    t0 = time.perf_counter()
+    # the ViZDoom split is made by VZD_WORKERS processes of its own while
+    # the phases before ViZDoom's run
+    background = concurrent.futures.ThreadPoolExecutor(1)
+    vizdoom_job = background.submit(vizdoom_split)
+    timed("build", build_phase)
+    rows = timed("kernel", kernel_phase)
+    split, launches = timed("slice", slice_phase)
+    train = timed("train", train_phase, split)
+    baselines = timed("baselines", baselines_phase, split)
+    decode = timed("decode", decode_phase, split, train["checkpoint"])
+    ss = timed("scheduled sampling", train_phase, split, steps=SS_STEPS,
+               log_step=SS_LOG_STEP, compare_plain=False, time_steps=False,
+               name="full_scheduled", check_falling=False,
+               extra_flags=("--scheduled_sampling",
+                            "--scheduled_sampling_decay_steps",
+                            str(SS_DECAY)))
+    resume = timed("resume", resume_phase, "karel", split, split)
+    vizdoom_splits = timed("vizdoom split, waited for", vizdoom_job.result)
+    background.shutdown()
+    vizdoom = timed("vizdoom", vizdoom_phase, *vizdoom_splits)
+    bf16 = timed("bf16", bf16_phase, split, vizdoom_splits)
+    print(f"phase all: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
 
-    def timed(r):  # the contract's names, device times of this run
+    def contract(r):  # the contract's names, device times of this run
         return {"ms": r["device_ms"], "plain_ms": r["plain_device_ms"],
                 "library_ms": r["library_device_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
@@ -1244,15 +1778,16 @@ def main():
         "replaces": "demo2program_tpu/ops/pallas_lstm.py:70",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in f32),
-        **timed(main_shape), "shape": [320, 512, UNITS],
+        **contract(main_shape), "shape": [320, 512, UNITS],
         "path_launches": {
             "eval": launches, "train": train["launches"],
             **{name: b["launches"] for name, b in baselines.items()},
             **{f"decode_{m}": d["launches"] for m, d in decode.items()},
             "train_scheduled_sampling": ss["launches"],
             "vizdoom_train": vizdoom["train"]["launches"],
-            "vizdoom_beam": vizdoom["beam_launches"]},
-        "shapes": [dict(r, **timed(r)) for r in rows]}]}), flush=True)
+            "vizdoom_beam": vizdoom["beam_launches"],
+            **{f"bf16_{k}": n for k, n in bf16["launches"].items()}},
+        "shapes": [dict(r, **contract(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -42,8 +42,10 @@ def base_parser():
                    default=20000)
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="forward/backward compute dtype; only float32 is "
-                        "ported (bfloat16 raises)")
+                   help="forward/backward compute dtype; with bfloat16 "
+                        "the parameters, Adam's state, the loss, the BN "
+                        "running statistics and the checkpoints stay "
+                        "float32")
     return p
 
 

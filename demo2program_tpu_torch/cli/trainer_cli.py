@@ -51,10 +51,8 @@ def _stage_already_done(train_dir):
 
 
 def main(argv=None):
-    import torch
-
     from demo2program_tpu_torch.train.step import (
-        deterministic_cuda, resolve_device)
+        deterministic_cuda, full_precision_matmuls, resolve_device)
 
     args = parse_args(argv)
     if resolve_device(args.device).type == "cuda":
@@ -63,9 +61,8 @@ def main(argv=None):
         log.infov("Nothing to do: %s already reached its resume.json "
                   "target", args.train_dir)
         return
-    # results are compared with f32 references: no TF32 in convs or matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # no TF32, and bf16 GEMMs that reduce in f32
+    full_precision_matmuls()
 
     from demo2program_tpu_torch.cli.evaler_cli import read_splits
     from demo2program_tpu_torch.train.trainer import Trainer

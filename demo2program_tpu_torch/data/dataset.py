@@ -1,8 +1,8 @@
 """HDF5 Karel dataset reader, compact wire format.
 
 The port's own copy of the part of demo2program_tpu/data/dataset.py that the
-CLIs use: the split membership (`all_ids`, `create_default_splits`) and
-`KarelDataset.get_batch_compact`, served from the same sidecar compact cache
+CLIs use: the split membership (`all_ids`, `create_default_splits`), the
+`--id_list` check (`check_data_id`) and `KarelDataset.get_batch_compact`, served from the same sidecar compact cache
 (`compact_cache_v1.npz`, written beside data.hdf5 and read by both packages).
 Batches equal the JAX reader's bit for bit. The full-tensor `get_data` and
 the in-memory preload behind it are not copied: the port expands compact
@@ -192,6 +192,17 @@ class KarelDataset:
 
     def __repr__(self):
         return f"KarelDataset ({self.name}, {len(self)} examples)"
+
+
+def check_data_id(dataset, data_id):
+    """Raise unless every requested id exists in the dataset
+    (`input_ops_karel.py:7-21`)."""
+    if not data_id:
+        return
+    wrong = [i for i in data_id if i not in dataset.data]
+    if wrong:
+        raise RuntimeError("There are %d invalid ids, including %s" % (
+            len(wrong), wrong[:5]))
 
 
 def all_ids(dataset_path, rng_seed=_SPLIT_RNG_SEED):

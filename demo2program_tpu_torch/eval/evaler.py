@@ -21,7 +21,13 @@ Differences from the JAX evaler:
     `get_batch(ids)` and the data_info fields (data/vizdoom_dataset.py or
     data/vizdoom_memory.py); `config_from_dataset` reads the dims from
     them;
-  * the canonical-comparison counters are reset at the start of each run;
+  * the canonical-comparison counters are reset at the start of each run,
+    so a checkpoint sweep (`set_checkpoint`, the CLI's `--sweep_steps`)
+    reports `canonical_fallback_rate` per checkpoint (the JAX sweep
+    accumulates it across checkpoints);
+  * h5py is imported where `--pred_program` / `--result_data` open their
+    files, before the first batch: on a host without h5py those flags raise
+    at once, naming h5py, and nothing partial is written;
   * `timings` holds, per batch, the seconds of the whole batch, of the
     model forward (copy to the device + expand + model + objective, ending
     in the copy of the results to the host), of execution scoring ("vm":
@@ -145,6 +151,52 @@ def save_checkpoint(model, path):
     torch.save(model.state_dict(), path)
 
 
+class _Dumps:
+    """The files `--pred_program` and `--result_data` write during one
+    eval_run; neither flag: nothing is opened and every call is a no-op.
+    h5py is imported here, when the files are opened."""
+
+    def __init__(self, args, checkpoint_name):
+        self.text = self.hdf5 = self.log = self.result = self.data = None
+        pred = getattr(args, "pred_program", False)
+        result = getattr(args, "result_data", False)
+        if not (pred or result):
+            return
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError(
+                "--pred_program and --result_data write HDF5 files and "
+                "need h5py, which this host does not have") from e
+        if pred:
+            os.makedirs(args.output_dir, exist_ok=True)
+            base = os.path.join(args.output_dir, "out_{}_{}".format(
+                checkpoint_name, args.dataset_split))
+            self.text = open(base + ".txt", "w")
+            self.hdf5 = h5py.File(base + ".hdf5", "w")
+            self.log = open(base + ".log", "w")
+        if result:
+            self.result = h5py.File(args.result_data_path, "w")
+            self.data = h5py.File(
+                os.path.join(args.dataset_path, "data.hdf5"), "r")
+
+    def write_batch(self, evaler, batch, evals, scores, msg):
+        if self.log is not None:
+            self.log.write(msg + "\n")
+            self.log.flush()  # one line a batch: a heartbeat for watchers
+            evaler._write_artifacts(batch, evals, scores, self.text,
+                                    self.hdf5)
+        if self.result is not None:
+            evaler._write_result_data(batch, evals, self.result, self.data)
+
+    def close(self, final):
+        if self.log is not None:
+            self.log.write(final)
+        for f in (self.text, self.log, self.hdf5, self.result, self.data):
+            if f is not None:
+                f.close()
+
+
 class Evaler:
     def __init__(self, args, dataset, device="cuda"):
         self.args = args
@@ -158,12 +210,9 @@ class Evaler:
         train_dir = getattr(args, "train_dir", "")
         if not self.checkpoint and train_dir:
             self.checkpoint = ckpt_io.latest_checkpoint(train_dir) or ""
+        self.model = model
         if self.checkpoint:
-            model.load_state_dict(ckpt_io.model_state_dict(
-                ckpt_io.load(self.checkpoint)))
-            log.info("Loaded from checkpoint: %s", self.checkpoint)
-            self.checkpoint_name = os.path.splitext(
-                os.path.basename(self.checkpoint))[0]
+            self._load(self.checkpoint)
         else:
             log.warn("No checkpoint is given. Just random initialization :-)")
             init_parameters(model, torch.Generator().manual_seed(args.seed))
@@ -176,11 +225,30 @@ class Evaler:
             self.scorer = VizdoomScorer(self.cfg, self.vocab)
         else:
             self.scorer = KarelScorer(self.cfg, self.device, self.vocab)
-        # args.max_steps: the batches the run evaluates, as the CLI sets it
-        self.summary_file = self.checkpoint + \
-            "_report_testdata{}_num_k{}.txt".format(
-                args.max_steps * args.batch_size, args.num_k)
+        self.summary_file = self._summary_name()
         self.timings = {}
+
+    def _load(self, path):
+        """The weights and BN statistics of checkpoint `path` into the
+        model, and the checkpoint's name: the file's stem, `<step>` for a
+        trainer checkpoint."""
+        self.model.load_state_dict(ckpt_io.model_state_dict(
+            ckpt_io.load(path)))
+        log.info("Loaded from checkpoint: %s", path)
+        self.checkpoint_name = os.path.splitext(os.path.basename(path))[0]
+
+    def _summary_name(self):
+        # args.max_steps: the batches the run evaluates, as the CLI sets it
+        return self.checkpoint + "_report_testdata{}_num_k{}.txt".format(
+            self.args.max_steps * self.args.batch_size, self.args.num_k)
+
+    def set_checkpoint(self, path):
+        """Re-aim this Evaler at another checkpoint of the same run: only
+        the weights move; the model, the eval step and the scorer stay
+        (demo2program_tpu/eval/evaler.py:104-124)."""
+        self._load(path)
+        self.checkpoint = os.path.abspath(path)
+        self.summary_file = self._summary_name()
 
     def eval_run(self):
         args = self.args
@@ -191,6 +259,7 @@ class Evaler:
             raise ValueError(f"{max_steps} batches of {bs} asked for; the "
                              f"split holds {n_full}")
         karel_canonical.STATS.update(compares=0, cap_fallbacks=0)
+        dumps = _Dumps(args, self.checkpoint_name)
         rerank = getattr(args, "execution_rerank", False)
         self._rerank_changed = self._rerank_total = 0
         timings = {"batch": [], "forward": [], "vm": [], "host": []}
@@ -216,13 +285,15 @@ class Evaler:
                 timings[k].append(self.scorer.timings[k] - scorer_t0[k])
 
             loss_d, acc_d, hist_d = self._assemble(report, evals, scores)
-            self._step_msg(s, loss_d, acc_d, hist_d, step_time,
-                           quiet=args.quiet)
+            msg = self._step_msg(s, loss_d, acc_d, hist_d, step_time,
+                                 quiet=args.quiet)
             for d in (loss_d, acc_d):
                 for k, v in d.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
             for k, v in hist_d.items():
                 hist_sums[k] = hist_sums.get(k, np.zeros_like(v)) + v
+            if evals:
+                dumps.write_batch(self, raw, evals, scores, msg)
 
         loss_avg = {k: v / max_steps for k, v in sums.items()
                     if k.endswith("loss")}
@@ -244,8 +315,84 @@ class Evaler:
                 f.write("Model class: {}\nCheckpoint: {}\nDataset: {}\n{}"
                         .format(args.model, self.checkpoint,
                                 args.dataset_path, final))
+        dumps.close("{}\nModel class: {}\nCheckpoint: {}\nDataset: {}\n"
+                    .format(final, args.model, self.checkpoint,
+                            args.dataset_path))
         log.warning("Completed Evaluation.")
         return loss_avg, acc_avg, hist_avg
+
+    # -- dumps (demo2program_tpu/eval/evaler.py:326-391) ----------------------
+    def _write_artifacts(self, batch, evals, scores, text_file, hdf5_file):
+        """One group per example in out_*.hdf5 (both programs as strings,
+        their syntax and per-demo execution verdicts) and its lines in
+        out_*.txt."""
+        correctness = ["wrong", "correct"]
+        ids = batch["id"]
+        gt_tokens = np.asarray(batch["program_tokens"])
+        gt_len = np.asarray(batch["program_len"])[:, 0].astype(int)
+        pred_tokens = evals["pred_tokens"]
+        pred_len = evals["pred_len"].astype(int)
+        g_tokens = evals["greedy_tokens"]
+        g_len = evals["greedy_len"].astype(int)
+        for i in range(len(ids)):
+            pid = str(ids[i])
+            pred_str = self.vocab.intseq2str(pred_tokens[i, :pred_len[i]])
+            greedy_str = self.vocab.intseq2str(g_tokens[i, :g_len[i]])
+            try:
+                grp = hdf5_file.create_group(pid)
+            except ValueError:
+                pass
+            else:
+                grp["program_prediction"] = pred_str
+                grp["program_syntax"] = correctness[
+                    int(scores["is_correct_syntax"][i])]
+                grp["program_num_execution_correct"] = int(
+                    scores["program_num_execution_correct"][i])
+                grp["program_is_correct_execution"] = \
+                    scores["program_is_correct_execution"][i]
+                grp["greedy_prediction"] = greedy_str
+                grp["greedy_syntax"] = correctness[
+                    int(scores["greedy_is_correct_syntax"][i])]
+                grp["greedy_num_execution_correct"] = int(
+                    scores["greedy_program_num_execution_correct"][i])
+                grp["greedy_is_correct_execution"] = \
+                    scores["greedy_program_is_correct_execution"][i]
+            text_file.write(
+                "[id: {}]\ngt: {}\npred{}: {}\ngreedy{}: {}\n".format(
+                    pid,
+                    self.vocab.intseq2str(gt_tokens[i, :gt_len[i]]),
+                    "(error)" if scores["is_correct_syntax"][i] == 0 else "",
+                    pred_str,
+                    "(error)" if scores["greedy_is_correct_syntax"][i] == 0
+                    else "",
+                    greedy_str))
+
+    def _write_result_data(self, batch, evals, result_file, data_file):
+        """One group per example in result.hdf5: the one-hot ground truth,
+        the decoded program's ids and length, and the stored demos."""
+        ids = batch["id"]
+        g_tokens = evals["greedy_tokens"]
+        g_len = evals["greedy_len"].astype(int)
+        for i in range(len(ids)):
+            pid = str(ids[i])
+            try:
+                grp = result_file.create_group(pid)
+            except ValueError:
+                log.info("Duplicates: %s", pid)
+                continue
+            if "program" in batch:
+                grp["program"] = np.asarray(batch["program"])[i]
+            else:  # compact wire: rebuild the one-hot on the host
+                tok = np.asarray(batch["program_tokens"])[i]
+                plen = int(np.asarray(batch["program_len"])[i, 0])
+                oh = np.zeros(
+                    (self.cfg.dim_program_token, tok.shape[0]), bool)
+                oh[tok[:plen], np.arange(plen)] = True
+                grp["program"] = oh
+            grp["pred_program"] = g_tokens[i]
+            grp["pred_program_len"] = g_len[i]
+            grp["s_h"] = data_file[pid]["s_h"][()]
+            grp["test_s_h"] = data_file[pid]["test_s_h"][()]
 
     def _apply_rerank(self, batch, evals):
         """Execution-guided beam selection (demo2program_tpu/eval/

@@ -14,6 +14,9 @@ from torch import nn
 
 from demo2program_tpu_torch.models.encoder import (
     DemoEncoder, SecondPathEncoder, SummarizeFeature)
+from demo2program_tpu_torch.models.ops import Dense
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -70,13 +73,14 @@ class ModelConfig:
 
 
 def check_ported(cfg):
-    """Raise NotImplementedError for what no model family of the port runs
-    yet: bf16 model compute."""
+    """Raise ValueError for a dataset type or a compute dtype that no model
+    family runs."""
     if cfg.dataset_type not in ("karel", "vizdoom"):
         raise ValueError(f"unknown dataset_type {cfg.dataset_type!r}")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r} is not ported")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"unknown compute_dtype {cfg.compute_dtype!r} (allowed: "
+            f"{sorted(COMPUTE_DTYPES)})")
 
 
 def fold_k(x):
@@ -160,8 +164,8 @@ class BaselineAggregation(nn.Module):
         self.aggregation = cfg.demo_aggregation
         units = cfg.num_lstm_cell_units
         if self.aggregation == "concat":
-            self.concat_proj_h = nn.Linear(cfg.k * units, units)
-            self.concat_proj_c = nn.Linear(cfg.k * units, units)
+            self.concat_proj_h = Dense(cfg.k * units, units)
+            self.concat_proj_c = Dense(cfg.k * units, units)
         elif self.aggregation not in ("avgpool", "maxpool"):
             raise ValueError(
                 f"unknown demo aggregation {self.aggregation!r}")

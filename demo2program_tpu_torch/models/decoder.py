@@ -11,7 +11,9 @@ is argmax(logits + Gumbel noise) and a Bernoulli draw is uniform < p, which
 is how jax.random.categorical and jax.random.bernoulli compute them, so the
 JAX package's own draws fed in as `noise` reproduce its tokens. Without
 `noise` the draws come from the explicit `generator` (on the model's
-device).
+device). The Gumbel noise is added in the logits' dtype, in which
+jax.random.categorical draws it: f32 draws are rounded to bf16 under bf16
+compute.
 
 Quirks kept:
   * the embedding has token_dim+1 rows; teacher forcing prepends the start
@@ -33,7 +35,7 @@ from torch import nn
 
 from demo2program_tpu_torch.dsl.karel_syntax import (
     POP, STACK_DEPTH, SYMBOL_MIN, initial_stack)
-from demo2program_tpu_torch.models.ops import FC, make_lstm_cell
+from demo2program_tpu_torch.models.ops import FC, Dense, make_lstm_cell
 
 NEG = -1e9
 
@@ -102,7 +104,7 @@ class _DecoderCore(nn.Module):
         self.token_dim = token_dim
         self.embedding = nn.Parameter(torch.empty(token_dim + 1, units))
         self.cell = make_lstm_cell(units, units, cell_impl)
-        self.output_projection = nn.Linear(units, token_dim, bias=False)
+        self.output_projection = Dense(units, token_dim, bias=False)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -251,8 +253,9 @@ class TokenDecoder(nn.Module):
             mask = legal & budget_ok & ~empty[:, None]
             mask = torch.where(finished[:, None], end_only, mask)
             masked = torch.where(mask, logits, NEG)
-            tok = torch.argmax(masked + noise[t] if sample else masked,
-                               dim=-1)
+            tok = torch.argmax(
+                masked + noise[t].to(masked.dtype) if sample else masked,
+                dim=-1)
             tok = torch.where(mask.any(dim=-1), tok, 0)
 
             # the stack transition (a no-op when the token is illegal)
@@ -302,7 +305,8 @@ class TokenDecoder(nn.Module):
         all_logits, all_sampled = [], []
         for t in range(L):
             state, logits = self.core(state, prev, gt_in[:, t], use_prev)
-            prev = torch.argmax(logits.detach() + gumbels[t], dim=-1)
+            prev = torch.argmax(
+                logits.detach() + gumbels[t].to(logits.dtype), dim=-1)
             use_prev = uniforms[t] < sampling_prob
             all_logits.append(logits)
             all_sampled.append(prev)
@@ -319,7 +323,7 @@ class VectorDecoder(nn.Module):
         super().__init__()
         self.per_embed = FC(out_dim, units, activation="none")
         self.cell = make_lstm_cell(units, units, cell_impl)
-        self.output_projection = nn.Linear(units, out_dim, bias=False)
+        self.output_projection = Dense(units, out_dim, bias=False)
 
     def forward(self, init_c, init_h, gt_vectors):
         """gt_vectors (bs, T, out_dim) -> logits (bs, T, out_dim)."""

@@ -7,8 +7,9 @@ the batch). The program decoder's outputs are the synthesis baseline's
 (models/synthesis.py:program_outputs): teacher-forced or scheduled
 sampling, and every decode mode; the action decoder decodes greedily. The
 train step skips both decoders' decoding (`include_greedy=False`). Train or
-eval mode is torch's `train()` / `eval()`, the flax `train` field. bf16
-compute is not ported.
+eval mode is torch's `train()` / `eval()`, the flax `train` field. The
+model computes in the dtype of the parameters it is called with
+(train/step.py:compute_call casts them for bf16 compute).
 
 The "greedy" perception head is teacher-forced (`model_full.py:409`), so
 the same tensor is exposed under both names.

@@ -28,7 +28,8 @@ from demo2program_tpu_torch.models.common import (
     BaselineAggregation, check_ported, fold_k, unfold_k)
 from demo2program_tpu_torch.models.decoder import embed, greedy_unroll
 from demo2program_tpu_torch.models.encoder import BiLSTMEncoder, LSTMEncoder
-from demo2program_tpu_torch.models.ops import Conv2D, FC, make_lstm_cell
+from demo2program_tpu_torch.models.ops import (
+    Conv2D, FC, Dense, make_lstm_cell, promoted)
 
 FC_FEATURES = 512  # the state encoder's FC width, whatever the units
 
@@ -126,9 +127,9 @@ class AttnDecoderCore(nn.Module):
         self.attn_type = attn_type
         self.embedding = nn.Parameter(torch.empty(action_space + 1, units))
         self.cell = make_lstm_cell(2 * units, units, cell_impl)
-        self.attention_layer = nn.Linear(units + memory_features, units,
+        self.attention_layer = Dense(units + memory_features, units,
                                          bias=False)
-        self.output_projection = nn.Linear(units, action_space, bias=False)
+        self.output_projection = Dense(units, action_space, bias=False)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -141,13 +142,18 @@ class AttnDecoderCore(nn.Module):
         (B, k, T) -> (carry, logits (B, action_space))."""
         (c, h), attention, prev_align = carry
         (c, h), out = self.cell((c, h), torch.cat([x_emb, attention], -1))
-        scores = torch.einsum("bu,bktu->bkt", out, keys)
+        # jnp.einsum promotes its operands (a bf16 cell output against f32
+        # keys when the memory holds the f32 state features)
+        dtype = promoted(out, keys)
+        scores = torch.einsum("bu,bktu->bkt", out.to(dtype), keys.to(dtype))
         scores = torch.where(mask, scores, torch.full_like(scores, -1e9))
         if self.attn_type == "luong_monotonic":
             align = monotonic_alignment(scores, mask, prev_align)
         else:
             align = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bkt,bktm->bkm", align, memory)
+        dtype = promoted(align, memory)
+        ctx = torch.einsum("bkt,bktm->bkm", align.to(dtype),
+                           memory.to(dtype))
         out_k = out[:, None, :].expand(-1, memory.shape[1], -1)
         attention = self.attention_layer(
             torch.cat([out_k, ctx], dim=-1)).mean(dim=1)
@@ -165,7 +171,7 @@ class InductionModel(BaselineAggregation):
         depth = cfg.depth * (2 if cfg.stack_subsequent_state else 1)
         self.encoder = InductionDemoEncoder(cfg, depth)
         memory_features = self.encoder.out_features
-        self.memory_layer = nn.Linear(memory_features, units, bias=False)
+        self.memory_layer = Dense(memory_features, units, bias=False)
         self.manipulation = AttnDecoderCore(
             cfg.action_space, units, memory_features, cfg.cell_impl,
             cfg.attn_type)

@@ -2,7 +2,9 @@
 
 Port of demo2program_tpu/models/metrics.py (`Sequence_Loss`,
 `model_full.py:620-711`). optax's softmax cross entropy is -sum(labels *
-log_softmax(logits)) and its sigmoid BCE is binary_cross_entropy_with_logits.
+log_softmax(logits)) and its sigmoid BCE is -labels * log_sigmoid(logits) -
+(1 - labels) * log_sigmoid(-logits). With bf16 logits both take the log
+terms in bf16 and the products with the f32 labels in f32, as jnp promotes.
 
 Every function here also takes extra LEADING dims in front of (bs, L, V):
 the masks then reduce over (bs, L) separately per leading index, which is
@@ -37,8 +39,8 @@ def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program",
     if seq_type in ("program", "action"):
         ce = -(gt_onehot * F.log_softmax(logits, dim=-1)).sum(-1)
     else:
-        ce = F.binary_cross_entropy_with_logits(
-            logits, gt_onehot, reduction="none").mean(-1)
+        ce = (-gt_onehot * F.logsigmoid(logits)
+              - (1.0 - gt_onehot) * F.logsigmoid(-logits)).mean(-1)
     loss = (ce * gt_mask).sum((-2, -1)) / gt_mask.sum((-2, -1)).clamp(min=1.0)
 
     out = {"loss": loss}

@@ -14,6 +14,20 @@ Layouts: convs run NCHW inside; the public StateEncoder keeps the JAX
 package's NHWC layout. Dense and conv weights are stored the torch way
 ((out, in) and OIHW); models/convert.py transposes flax's (in, out) / HWIO.
 
+Mixed precision (`--compute_dtype bfloat16`, train/step.py:compute_call):
+the layers see bf16 copies of their parameters, and every layer here ends in
+the dtype flax's ends in. flax promotes (jnp.promote_types) where torch
+raises: a Dense or Conv on an f32 input computes in f32 with the bf16
+weights' rounded values (`promoted`); BatchNorm takes its batch statistics
+in f32 whatever the input, normalises in f32, and returns the promoted dtype
+of (input, scale, bias); the running statistics are stored in f32 but SEEN
+in the parameters' dtype (the JAX step casts every f32 leaf of batch_stats
+along with the params), so eval mode normalises with bf16 statistics in the
+promoted dtype of its input, and train mode stores 0.9 * f32(bf16(running))
++ 0.1 * the f32 batch statistic: the stored value is rounded through bf16
+on every step. (flax writes 0.9 * running as a bf16 product; XLA on the CPU
+keeps it in f32, its excess precision, and that is the value held here.)
+
 `init_parameters` draws the flax initializers from one torch.Generator:
 lecun-normal (truncated) Dense/Conv kernels, zero biases, unit BN scale,
 U[0, 0.02) embeddings and glorot-uniform LSTM kernels.
@@ -46,23 +60,62 @@ def lrelu(x, leak=0.2):
     return f1 * x + f2 * torch.where(x >= 0, x, -x)
 
 
+def promoted(*tensors):
+    """jnp.promote_types over the dtypes of `tensors` (None entries
+    skipped): float32 wins over bfloat16."""
+    dtype = None
+    for t in tensors:
+        if t is not None:
+            dtype = t.dtype if dtype is None else torch.promote_types(
+                dtype, t.dtype)
+    return dtype
+
+
+def _to(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+def _normalize(bn, x, mean, var):
+    """flax `_normalize`: (x - mean) * (rsqrt(var + eps) * scale) + bias,
+    each product in the promoted dtype of its operands, the result in the
+    promoted dtype of (x, scale, bias)."""
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    # rsqrt in f32, rounded once: torch's bf16 rsqrt on the CPU is an ulp
+    # off where flax's (and the card's) is correctly rounded
+    inv = torch.rsqrt((var + bn.eps).float()).to(var.dtype)
+    scale = inv * bn.weight
+    y = (x - mean.reshape(shape)) * scale.reshape(shape) + bn.bias.reshape(
+        shape)
+    return y.to(promoted(x, bn.weight, bn.bias))
+
+
 def batch_norm_train(bn, x):
     """flax `BatchNorm(use_running_average=False)` on the channels of dim 1,
     with the parameters and buffers of the torch module `bn`: normalise with
     the batch mean and the BIASED batch variance, computed as flax does
-    (E[x^2] - E[x]^2, clipped at 0), and move the running statistics by
-    running = 0.9 * running + 0.1 * batch. torch's own training mode moves
-    running_var by the unbiased variance (a factor n / (n - 1))."""
+    (in f32: E[x^2] - E[x]^2, clipped at 0), and move the running statistics
+    by running = 0.9 * running + 0.1 * batch, `running` as seen in the
+    parameters' dtype (the module docstring). torch's own training mode
+    moves running_var by the unbiased variance (a factor n / (n - 1))."""
     dims = [0] + list(range(2, x.dim()))
-    shape = [1, -1] + [1] * (x.dim() - 2)
-    mean = x.mean(dims)
-    var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+    xf = x.float()
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
     with torch.no_grad():
         for running, stat in ((bn.running_mean, mean), (bn.running_var, var)):
-            running.copy_(BN_MOMENTUM * running + (1.0 - BN_MOMENTUM) * stat)
-    scale = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean.reshape(shape)) * scale.reshape(shape) + bn.bias.reshape(
-        shape)
+            seen = running.to(bn.weight.dtype).float()
+            running.copy_(BN_MOMENTUM * seen + (1.0 - BN_MOMENTUM) * stat)
+    return _normalize(bn, x, mean, var)
+
+
+def batch_norm_eval(bn, x):
+    """flax `BatchNorm(use_running_average=True)`: the running statistics
+    as the model sees them, in the parameters' dtype."""
+    if x.dtype == bn.weight.dtype == torch.float32:
+        return bn(x)
+    dtype = bn.weight.dtype
+    return _normalize(bn, x, bn.running_mean.to(dtype),
+                      bn.running_var.to(dtype))
 
 
 class BNAct(nn.Module):
@@ -81,7 +134,7 @@ class BNAct(nn.Module):
             x = lrelu(x)
         if self.training:
             return batch_norm_train(self.bn, x)
-        return self.bn(x)
+        return batch_norm_eval(self.bn, x)
 
 
 def same_padding(size, kernel, stride):
@@ -89,6 +142,15 @@ def same_padding(size, kernel, stride):
     out = -(-size // stride)
     total = max((out - 1) * stride + kernel - size, 0)
     return total // 2, total - total // 2
+
+
+class Dense(nn.Linear):
+    """flax `Dense`: input, kernel and bias promoted to one dtype first."""
+
+    def forward(self, x):
+        dtype = promoted(x, self.weight, self.bias)
+        return F.linear(x.to(dtype), self.weight.to(dtype),
+                        _to(self.bias, dtype))
 
 
 class Conv2D(nn.Module):
@@ -104,8 +166,11 @@ class Conv2D(nn.Module):
     def forward(self, x):
         top, bottom = same_padding(x.shape[2], self.KERNEL, self.STRIDE)
         left, right = same_padding(x.shape[3], self.KERNEL, self.STRIDE)
-        x = F.pad(x, (left, right, top, bottom))
-        return self.bn_act(self.conv(x))
+        conv = self.conv
+        dtype = promoted(x, conv.weight, conv.bias)
+        x = F.pad(x.to(dtype), (left, right, top, bottom))
+        return self.bn_act(F.conv2d(x, conv.weight.to(dtype),
+                                    _to(conv.bias, dtype), conv.stride))
 
 
 class FC(nn.Module):
@@ -113,7 +178,7 @@ class FC(nn.Module):
 
     def __init__(self, in_features, features, activation="lrelu"):
         super().__init__()
-        self.dense = nn.Linear(in_features, features)
+        self.dense = Dense(in_features, features)
         self.bn_act = BNAct(features, activation)
 
     def forward(self, x):

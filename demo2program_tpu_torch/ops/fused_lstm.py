@@ -10,7 +10,8 @@ Port of demo2program_tpu/ops/pallas_lstm.py. Semantics, gate order
 `fused_lstm_step` dispatches on where its tensors lie: CPU tensors take the
 plain version `lstm_step_ref`; CUDA tensors launch the kernel in
 csrc/fused_lstm.cu or raise. There is no fallback from the kernel to the
-plain version. `fused_lstm_step.launches` counts kernel launches.
+plain version. `fused_lstm_step.launches` counts kernel launches, and
+`fused_lstm_step.launches_by_dtype` those of each entry (f32, bf16).
 
 Gradients (pallas_lstm.py:92-107): when grad is enabled and an input needs
 one, the step runs through `FusedLSTMStep`, an autograd Function whose
@@ -128,6 +129,7 @@ def _step(x, h, c, w, b):
         raise RuntimeError(f"fused_lstm_step: kernel launch failed with CUDA "
                            f"error {err}")
     fused_lstm_step.launches += 1
+    fused_lstm_step.launches_by_dtype[x.dtype] += 1
     return h_out, c_out
 
 
@@ -158,6 +160,14 @@ def fused_lstm_step(x, h, c, w, b):
 
 
 fused_lstm_step.launches = 0
+fused_lstm_step.launches_by_dtype = {dtype: 0 for dtype in _ENTRY}
+
+
+def reset_launches():
+    """Set the launch counts (the total and the one per dtype) to 0."""
+    fused_lstm_step.launches = 0
+    for dtype in _ENTRY:
+        fused_lstm_step.launches_by_dtype[dtype] = 0
 
 
 class FusedLSTMCell(nn.Module):

@@ -1,4 +1,4 @@
-"""Train and eval steps (f32).
+"""Train and eval steps, in f32 or with bf16 compute.
 
 Port of demo2program_tpu/train/step.py: Adam (optax `adam`: b1 0.9, b2
 0.999, eps 1e-8 outside the square root) after clipping by global norm 20
@@ -7,7 +7,20 @@ rate (x0.5 every 10k updates, `--lr_weight_decay`), scheduled sampling
 (`--scheduled_sampling`: the decoder feeds back its own sample with a
 probability that rises linearly from 0 to 0.9 over the decay steps), and the
 eval step in every program decode mode, for every model family (the
-objective by model name). bf16 compute is not ported.
+objective by model name).
+
+`--compute_dtype bfloat16` (`compute_call`, as the JAX step's `_cast_floats`
+at demo2program_tpu/train/step.py:101-118, 212-224): the batch is expanded
+first; then the model runs on bf16 copies of its parameters, cast inside
+the graph so that backward leaves f32 gradients on the f32 parameters, and
+on the expanded batch with its float32 leaves cast to bf16. The parameters,
+Adam's moments, the BN running statistics and the checkpoint stay f32; the
+BN layers see the running statistics in their parameters' dtype
+(models/ops.py). The model's bf16 outputs go into the objective as they are
+(the JAX step's cast of `out` back to float32 moves float32 leaves only, so
+it moves nothing), against the uncast batch: the f32 labels and masks
+promote each loss term to f32. No torch.autocast: every op's dtype is
+flax's.
 
 The train step runs eagerly: forward in train mode (BatchNorm on batch
 statistics, no greedy decoders), the full objective, backward (every LSTM
@@ -22,8 +35,10 @@ import os
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from demo2program_tpu_torch.models import objective
+from demo2program_tpu_torch.models.common import COMPUTE_DTYPES
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 
 NON_TENSOR_KEYS = ("id",)
@@ -68,6 +83,17 @@ def deterministic_cuda():
     # here reads memory it has not written, and the eager VM and train
     # step allocate thousands of small tensors a batch
     torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def full_precision_matmuls():
+    """The card's library matmuls and convs as the references compute them:
+    no TF32 for f32 operands, and bf16 GEMMs that reduce their split-K
+    partial sums in f32 (cuBLAS may otherwise round each partial sum to
+    bf16), as the LSTM kernel and the JAX package accumulate. The entry
+    points call this beside deterministic_cuda()."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def require_deterministic_cuda():
@@ -166,6 +192,29 @@ class TrainState:
         self.optimizer.load_state_dict(state["optimizer"])
 
 
+def cast_floats(tree, dtype):
+    """A dict of tensors with its float32 leaves cast to `dtype`; integer,
+    bool, uint8 and other float leaves stay
+    (demo2program_tpu/train/step.py:67-72)."""
+    return {k: v.to(dtype) if v.dtype == torch.float32 else v
+            for k, v in tree.items()}
+
+
+def compute_call(model, cfg, batch, **kwargs):
+    """model(batch, **kwargs) in cfg.compute_dtype: as it stands in float32;
+    else on copies of the parameters and of the batch's float32 leaves in
+    that dtype. The copies are made inside the autograd graph, so gradients
+    reach the f32 parameters in f32. The buffers (BN running statistics)
+    stay the model's own f32 tensors: the BN layers read them in their
+    parameters' dtype and write the f32 update back."""
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    if dtype == torch.float32:
+        return model(batch, **kwargs)
+    params = cast_floats(dict(model.named_parameters()), dtype)
+    return functional_call(model, params, (cast_floats(batch, dtype),),
+                           kwargs)
+
+
 def forward_loss(model, cfg, batch, model_name, **kwargs):
     """Train-mode forward of a compact or expanded batch (dict of tensors on
     the model's device) -> (loss, report) of `model_name`'s objective.
@@ -173,7 +222,7 @@ def forward_loss(model, cfg, batch, model_name, **kwargs):
     generator)."""
     model.train()
     batch = expand_batch(strip_non_tensor(batch), cfg)
-    out = model(batch, include_greedy=False, **kwargs)
+    out = compute_call(model, cfg, batch, include_greedy=False, **kwargs)
     return objective.compute_loss(cfg, out, batch, model_name)
 
 
@@ -222,7 +271,7 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
             device = next(model.parameters()).device
             kwargs["generator"] = torch.Generator(
                 device=device).manual_seed(decode_seed)
-        out = model(batch, **kwargs)
+        out = compute_call(model, cfg, batch, **kwargs)
         _, report = objective.compute_loss(cfg, out, batch, model_name)
         report.update(objective.greedy_action_report(cfg, out, batch,
                                                      model_name))

@@ -40,8 +40,8 @@ holds. ViZDoom trains from a DoomDeviceCache and samples test batches in
 the full wire format, as the JAX trainer does (trainer.py:136-192); its
 bs 32 -> 8 second stage is a new run with `--checkpoint` and
 `--batch_size 8`. Not ported: the streaming BatchPipeline path
-(a ViZDoom split that does not fit the card raises), bf16 compute,
-`--sample_images` and `--profile_steps`.
+(a ViZDoom split that does not fit the card raises), `--sample_images`
+and `--profile_steps`.
 """
 
 import json

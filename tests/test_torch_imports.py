@@ -29,6 +29,8 @@ names = [m.name for m in
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+assert "demo2program_tpu_torch.tools.eval_execution" in names
+assert "demo2program_tpu_torch.tools.inspect_output" in names
 print(len(names))
 """
 
@@ -51,3 +53,14 @@ def test_no_module_imports_jax():
     offenders += ["chip_smoke.py"] if pattern.search(
         (ROOT / "chip_smoke.py").read_text()) else []
     assert not offenders, offenders
+
+
+def test_h5py_is_imported_only_where_a_file_is_opened():
+    """No module of the port imports h5py at its top level: every import of
+    it is indented, inside the function that opens a file."""
+    pattern = re.compile(r"^(import|from)\s+h5py\b", re.MULTILINE)
+    offenders = [str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders, offenders
+    assert any(re.search(r"^\s+import h5py", p.read_text(), re.MULTILINE)
+               for p in (PACKAGE / "tools").glob("*.py"))

@@ -85,11 +85,18 @@ def test_lstm_steps_per_forward(monkeypatch, variant, seen_steps,
     assert count_lstm_steps(monkeypatch, model, batch, True) == enc + 2 * t_a
 
 
-@pytest.mark.parametrize("what,field,value", [
-    ("compute_dtype", "compute_dtype", "bfloat16")])
-def test_unported_options_raise(what, field, value):
-    with pytest.raises(NotImplementedError, match=what):
-        InductionModel(_cfg(**{field: value}))
+@pytest.mark.parametrize("value,raises", [("bfloat16", False),
+                                          ("float16", True)])
+def test_compute_dtype_options(value, raises):
+    """The model builds for bf16 compute (its parameters stay f32: the step
+    casts copies, train/step.py:compute_call) and refuses a dtype that
+    `--compute_dtype` does not offer."""
+    if raises:
+        with pytest.raises(ValueError, match="compute_dtype"):
+            InductionModel(_cfg(compute_dtype=value))
+        return
+    model = InductionModel(_cfg(compute_dtype=value))
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 def test_scheduled_sampling_is_ignored():

@@ -11,6 +11,7 @@ jitted JAX `make_step_fn` over 1 and 3 steps; a drive of both CLIs.
 import dataclasses
 
 import pytest
+import torch
 
 from __graft_entry__ import _tiny_cfg
 from demo2program_tpu_torch.data.karel_memory import generate_split
@@ -56,12 +57,23 @@ def test_lstm_steps_per_forward(monkeypatch):
     assert count_lstm_steps(monkeypatch, model, batch, True) == T + 2 * L
 
 
-@pytest.mark.parametrize("what,field,value", [
-    ("compute_dtype", "compute_dtype", "bfloat16")])
-def test_unported_options_raise(what, field, value):
-    cfg = dataclasses.replace(_tiny_cfg(), model=MODEL, **{field: value})
-    with pytest.raises(NotImplementedError, match=what):
-        SynthesisModel(ModelConfig(**dataclasses.asdict(cfg)))
+def _build(value):
+    cfg = dataclasses.replace(_tiny_cfg(), model=MODEL, compute_dtype=value)
+    return SynthesisModel(ModelConfig(**dataclasses.asdict(cfg)))
+
+
+@pytest.mark.parametrize("value,raises", [("bfloat16", False),
+                                          ("float16", True)])
+def test_compute_dtype_options(value, raises):
+    """The model builds for bf16 compute (its parameters stay f32: the step
+    casts copies, train/step.py:compute_call) and refuses a dtype that
+    `--compute_dtype` does not offer."""
+    if raises:
+        with pytest.raises(ValueError, match="compute_dtype"):
+            _build(value)
+        return
+    model = _build(value)
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 @pytest.mark.parametrize("mode", ["beam", "syntax_greedy", "syntax_sample"])

@@ -31,7 +31,8 @@ from demo2program_tpu.models.registry import (
 from demo2program_tpu.ops import pallas_lstm
 from demo2program_tpu.ops.reconstruct import expand_batch as jax_expand
 from demo2program_tpu.train.step import (
-    _sampling_prob, create_train_state, make_optimizer, make_step_fn)
+    _cast_floats, _sampling_prob, create_train_state, make_optimizer,
+    make_step_fn)
 from demo2program_tpu_torch.cli import trainer_cli
 from demo2program_tpu_torch.data.karel_memory import (
     SplitConfig, generate_split)
@@ -267,9 +268,13 @@ def run_train_parity(split, model_name, cell_impl, overrides=None,
 
     def loss_fn(params, batch):
         b = jax_expand(batch, jcfg)
-        out, _ = jmodel.apply(
-            {"params": params, "batch_stats": state.batch_stats}, b,
-            mutable=["batch_stats"], include_greedy=False, **ss)
+        variables, cast = {"params": params,
+                           "batch_stats": state.batch_stats}, b
+        if cfg.compute_dtype == "bfloat16":  # as make_step_fn casts
+            variables, cast = (_cast_floats(t, jnp.bfloat16)
+                               for t in (variables, b))
+        out, _ = jmodel.apply(variables, cast, mutable=["batch_stats"],
+                              include_greedy=False, **ss)
         return jax_objective.compute_loss(jcfg, out, b, model_name)[0]
 
     grads_j = flax_to_state_dict(
