@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and the repository checkout; exits non-zero
+Needs one CUDA card, nvcc, g++ and the repository checkout; exits non-zero
 without them. It:
 
   1. prints the card's name and power limit (nvidia-smi);
@@ -110,7 +110,24 @@ without them. It:
      and takes one bf16 step of the induction variant that the JAX
      package runs in bf16 (state features concatenated to the memory);
      every phase prints its seconds (`phase <name>: ... s`);
- 12. prints one JSON line describing the kernel: its time, the plain
+ 12. data phase: builds the native Karel engine with g++ and generates the
+     split's 64 programs (k 10, test_k 5) in memory with both backends of
+     data/karel_generator.py (the card's machine has no h5py): the records
+     must be equal, array for array, and their compact form must be the
+     in-memory split; prints each backend's programs/s with the host's CPU.
+     Then trains streamed (D2P_KAREL_DEVICE_CACHE=0 /
+     D2P_DOOM_DEVICE_CACHE=0: data/pipeline.py ships each batch on its own
+     stream ahead of the step): Karel 20 steps (20 x 125 + 190 launches, a
+     falling loss, gradients card vs CPU, the checkpoint evaluated) and
+     ViZDoom 10 steps at k 25 (10 x 60 + 99), printing the bytes shipped a
+     step and each log line's sec_data_wait; times the streamed loop beside
+     the device cache in turns (cache, stream, stream, cache) on both
+     domains; checks bitwise exact resume streamed (two runs and a resumed
+     run, both domains); and runs 2 streamed steps with --profile_steps 1
+     --profile_start 1 --sample_images: the Chrome trace of step 1 must
+     parse and name the LSTM kernel exactly 125 times, and the four sample
+     PNGs of step 0 must decode (utils/png.py) to their expected sizes;
+ 13. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
      or by operations) at every shape, with every path's launches, then
@@ -127,23 +144,29 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
+import platform
 import re
 import shutil
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 import numpy as np
 import torch
 
+from demo2program_tpu_torch import native
 from demo2program_tpu_torch.cli import evaler_cli, trainer_cli
 from demo2program_tpu_torch.cli.evaler_cli import parse_args
+from demo2program_tpu_torch.data.karel_generator import generate_records
 from demo2program_tpu_torch.data.karel_memory import (
-    SplitConfig, generate_split)
+    SplitConfig, generate_split, split_from_records)
+from demo2program_tpu_torch.data.pipeline import BatchPipeline
 from demo2program_tpu_torch.data import vizdoom_memory
 from demo2program_tpu_torch.data.vizdoom_generator import (
     VizdoomGeneratorConfig)
@@ -160,10 +183,12 @@ from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.tools import eval_execution
 from demo2program_tpu_torch.train import checkpoint
+from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
 from demo2program_tpu_torch.train.step import (
     compute_call, deterministic_cuda, forward_loss, full_precision_matmuls,
     global_norm, make_eval_step, make_train_step, sampling_prob, to_device)
 from demo2program_tpu_torch.train.trainer import Trainer
+from demo2program_tpu_torch.utils.png import read_png
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"  # of every phase's entry points
@@ -268,6 +293,15 @@ VZD_WORKERS = 4  # generator processes, beside the phases before ViZDoom's
 VZD_TRAIN, VZD_TEST = 64, 32
 VZD_STEPS, VZD_LOG_STEP, VZD_EVAL_BATCHES = 10, 5, 1
 VZD_STAGE_STEPS, VZD_STAGE2_BATCH = 4, 8
+# the data phase: streamed train runs (Karel, ViZDoom), the streamed and the
+# device-cache loop timed in turns (runs of DATA_TURN_STEPS, the rate over
+# the steps after the first log line), and one run of PROFILED_RUN_STEPS
+# steps that profiles step 1 and writes the sample PNGs of step 0
+DATA_STEPS, DATA_LOG_STEP = 20, 10
+DATA_VZD_STEPS, DATA_VZD_LOG_STEP = 10, 5
+DATA_TURN_STEPS, DATA_TURN_LOG_STEP = 20, 10
+PROFILED_RUN_STEPS = 2
+KERNEL_NAME = "fused_lstm_step_kernel"  # the __global__ in fused_lstm.cu
 
 
 def check(cond, msg):
@@ -1154,6 +1188,49 @@ def dtype_readings(trainer, eval_batch, steps=PROFILE_STEPS, top=8):
             "ops_bf16_f32": most_moved(bf16[0], f32[0], top)}
 
 
+def resume_run(tag, split, test_split, dataset_type, num_k, steps, name,
+               max_steps, target=None, deterministic=True):
+    """One run of resume_phase: a Trainer of `steps`-step runs in
+    <OUT_DIR>/resume_<tag>_<name> trained `max_steps` steps (a relaunch,
+    with the killed run's stage `target`, resumes from the directory's
+    checkpoint) -> (train_dir, trainer)."""
+    train_dir = os.path.join(OUT_DIR, f"resume_{tag}_{name}")
+    if target is None:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    args = trainer_args(train_dir, steps, steps // 2,
+                        dataset_type=dataset_type, num_k=num_k,
+                        test_sample_step=steps)
+    trainer = Trainer(args, split, test_split, device=args.device)
+    if target is not None:  # the killed run's stage target
+        with open(os.path.join(train_dir, "resume.json"), "w") as f:
+            json.dump({"target_step": target}, f)
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        trainer.train(max_steps=max_steps)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    torch.cuda.synchronize()
+    return train_dir, trainer
+
+
+def resumed_equal(tag, run, steps):
+    """Runs a and b of `steps` steps and run c stopped at steps // 2 and
+    resumed by a new Trainer (`run(name, max_steps, target)`: resume_run
+    with the rest bound) -> namespace of the run dirs, run a's trainer and
+    checkpoint, and whether b and the resumed c equal a bit for bit."""
+    dirs = {}
+    dirs["a"], trainer_a = run("a", steps)
+    dirs["b"], _ = run("b", steps)
+    dirs["c"], _ = run("c", steps // 2)
+    _, resumed = run("c", steps, target=steps)
+    check(resumed._auto_resumed, f"{tag}: the relaunch did not resume")
+    first, b, c = (checkpoint.load(checkpoint.checkpoint_path(dirs[n], steps))
+                   for n in "abc")
+    return types.SimpleNamespace(
+        dirs=dirs, trainer=trainer_a, first=first,
+        same_runs=equal_states(first, b), same_resumed=equal_states(first, c))
+
+
 def resume_phase(tag, split, test_split, dataset_type="karel",
                  num_k=None, steps=RESUME_STEPS, profile=False):
     """Exact resume on the card (deterministic mode, which main turns on
@@ -1163,53 +1240,28 @@ def resume_phase(tag, split, test_split, dataset_type="karel",
     algorithms off for its steps, for the mode's cost in s/step, and with
     `profile` the device time of a step in each mode (mode_profile)."""
     log_step = steps // 2
-
-    def run(name, max_steps, target=None, deterministic=True):
-        train_dir = os.path.join(OUT_DIR, f"resume_{tag}_{name}")
-        if target is None:
-            shutil.rmtree(train_dir, ignore_errors=True)
-        args = trainer_args(train_dir, steps, log_step,
-                            dataset_type=dataset_type, num_k=num_k,
-                            test_sample_step=steps)
-        trainer = Trainer(args, split, test_split, device=args.device)
-        if target is not None:  # the killed run's stage target
-            with open(os.path.join(train_dir, "resume.json"), "w") as f:
-                json.dump({"target_step": target}, f)
-        torch.use_deterministic_algorithms(deterministic)
-        try:
-            trainer.train(max_steps=max_steps)
-        finally:
-            torch.use_deterministic_algorithms(True)
-        torch.cuda.synchronize()
-        return train_dir, trainer
-
-    def saved(train_dir):
-        return checkpoint.load(checkpoint.checkpoint_path(train_dir, steps))
-
-    dir_a, trainer_a = run("a", steps)
-    dir_b, _ = run("b", steps)
-    dir_c, _ = run("c", log_step)
-    _, resumed = run("c", steps, target=steps)
-    check(resumed._auto_resumed, f"{tag}: the relaunch did not resume")
-    first = saved(dir_a)
-    same_runs = equal_states(first, saved(dir_b))
-    same_resumed = equal_states(first, saved(dir_c))
+    run = functools.partial(resume_run, tag, split, test_split, dataset_type,
+                            num_k, steps)
+    runs = resumed_equal(tag, run, steps)
     dir_d, _ = run("d", steps, deterministic=False)
-    evals = eval_modes(checkpoint.checkpoint_path(dir_a, steps), test_split,
-                       dataset_type, num_k or SPLIT.k)
+    evals = eval_modes(checkpoint.checkpoint_path(runs.dirs["a"], steps),
+                       test_split, dataset_type, num_k or SPLIT.k)
     res = {"card": CARD, "steps": steps,
-           "two_runs_bitwise_equal": same_runs,
-           "resumed_run_bitwise_equal": same_resumed,
-           "deterministic_s_per_step": rate(dir_a, steps, log_step),
-           "deterministic_s_per_step_b": rate(dir_b, steps, log_step),
+           "two_runs_bitwise_equal": runs.same_runs,
+           "resumed_run_bitwise_equal": runs.same_resumed,
+           "deterministic_s_per_step": rate(runs.dirs["a"], steps, log_step),
+           "deterministic_s_per_step_b": rate(runs.dirs["b"], steps,
+                                              log_step),
            "default_s_per_step": rate(dir_d, steps, log_step),
-           "default_run_bitwise_equal": equal_states(first, saved(dir_d)),
+           "default_run_bitwise_equal": equal_states(
+               runs.first, checkpoint.load(
+                   checkpoint.checkpoint_path(dir_d, steps))),
            "eval_s_per_batch": evals}
-    if profile:  # after the checkpoints: the profiled steps move trainer_a
-        res["step_device_profile"] = mode_profile(trainer_a)
+    if profile:  # after the checkpoints: the profiled steps move trainer a
+        res["step_device_profile"] = mode_profile(runs.trainer)
     print(f"resume_{tag} " + json.dumps(res), flush=True)
-    check(same_runs, f"{tag}: two runs from one seed differ on the card")
-    check(same_resumed, f"{tag}: the resumed run differs from the "
+    check(runs.same_runs, f"{tag}: two runs from one seed differ on the card")
+    check(runs.same_resumed, f"{tag}: the resumed run differs from the "
           f"uninterrupted one")
     return res
 
@@ -1726,6 +1778,326 @@ def bf16_phase(split, vizdoom_splits):
     return res
 
 
+@contextlib.contextmanager
+def streaming(on=True):
+    """D2P_KAREL_DEVICE_CACHE and D2P_DOOM_DEVICE_CACHE set to "0" (the
+    Trainer streams its train split) inside the block, as they were
+    after it."""
+    names = ("D2P_KAREL_DEVICE_CACHE", "D2P_DOOM_DEVICE_CACHE")
+    before = {n: os.environ.get(n) for n in names}
+    for n in names:
+        os.environ[n] = "0" if on else "1"
+    try:
+        yield
+    finally:
+        for n, v in before.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+def host_cpu():
+    """The host's CPU (model name, else its architecture) and core count,
+    for host-side rates."""
+    model = platform.machine()
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def generation_check(split):
+    """Build the native engine, generate SPLIT's programs with both
+    backends of the Karel generator (in memory: the card's machine has no
+    h5py) and check that the records are equal, array for array, and that
+    their compact form is `split` (data/karel_memory.py's, which the other
+    phases train and evaluate on)."""
+    path, build_s, _ = native.build()
+    cfg = SPLIT.generator_config()
+    records, rates = {}, {}
+    for backend in ("native", "python"):
+        t0 = time.perf_counter()
+        records[backend] = list(generate_records(cfg, backend,
+                                                 progress_every=0))
+        rates[backend] = SPLIT.num_programs / (time.perf_counter() - t0)
+    a, b = records["native"], records["python"]
+    check(len(a) == len(b) == SPLIT.num_programs + 1,
+          f"{len(a)} native and {len(b)} python records")
+    for (id_a, ra), (id_b, rb) in zip(a, b):
+        check(id_a == id_b and set(ra) == set(rb),
+              f"native record {id_a} vs python {id_b}")
+        for key in ra:
+            check(np.array_equal(ra[key], rb[key])
+                  and np.asarray(ra[key]).dtype == np.asarray(rb[key]).dtype,
+                  f"{id_a}/{key}: native and python records differ")
+    compact = split_from_records(a, SPLIT.max_program_len,
+                                 SPLIT.max_demo_len)
+    check(compact.ids == split.ids and set(compact.arr) == set(split.arr)
+          and all(np.array_equal(compact.arr[k], v)
+                  and compact.arr[k].dtype == v.dtype
+                  for k, v in split.arr.items()),
+          "the native records' compact form is not the in-memory split")
+    res = {"library": os.path.relpath(path, ROOT), "build_s": build_s,
+           "programs": SPLIT.num_programs, "host": host_cpu(),
+           "native_programs_per_s": rates["native"],
+           "python_programs_per_s": rates["python"],
+           "records_equal": True, "compact_equals_in_memory_split": True}
+    print("data generation " + json.dumps(res), flush=True)
+    return res
+
+
+def data_waits(train_dir):
+    """sec_data_wait of every train row of a run's metrics.jsonl."""
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return [r["sec_data_wait"] for r in rows if r["split"] == "train"]
+
+
+# batches of the streamed-copy check: more than the pipeline queues (4), so
+# later copies land in memory that earlier batches freed
+STREAM_CHECK_BATCHES = 8
+
+
+def check_streamed_batches(trainer, split, name):
+    """The contents of streamed batches on the card. A fresh BatchPipeline
+    with the trainer's seed, drop keys and wire hands out
+    STREAM_CHECK_BATCHES batches through next(); before each batch is copied
+    on the current stream and freed, that stream is kept busy with a chain
+    of matmuls, so a copy that did not wait for the pipeline's event, or
+    memory handed to a later batch before the current stream had read it,
+    shows as a wrong array. Then the pipeline's worker job runs alone on
+    the main thread for 3 batches (`make_ms`: host ms to make and ship one).
+    Every batch is held against the split's host batch of the same ids,
+    array for array (values and dtypes), and on Karel also against
+    KarelDeviceCache's gather of the same rows on the card."""
+    karel = trainer.cfg.dataset_type == "karel"
+    drop = trainer.pipe_train.drop_keys
+    bs = trainer.args.batch_size
+    pipe = BatchPipeline(split, bs, seed=trainer.args.seed, device=DEVICE,
+                         drop_keys=drop, compact=karel)
+    busy = torch.ones(4096, 4096, device=DEVICE)
+
+    def copy(batch):
+        return {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in batch.items()}
+
+    got, make_ms = [], []
+    try:
+        for _ in range(STREAM_CHECK_BATCHES):
+            batch = next(pipe)
+            x = busy
+            for _ in range(4):
+                x = (x @ busy) / 4096
+            got.append(copy(batch))
+            del batch
+        for b in range(3):
+            t0 = time.perf_counter()
+            batch, event = pipe._load_batch(split.ids[b:b + bs])
+            if event is not None:  # None on the CPU (a rehearsal)
+                event.synchronize()
+            make_ms.append((time.perf_counter() - t0) * 1e3)
+            got.append(batch)
+    finally:
+        pipe.close()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    cache = (KarelDeviceCache(split, DEVICE, bs, trainer.args.seed,
+                              include_test=not drop) if karel else None)
+    for batch in got:
+        ids = list(batch["id"])
+        host = (split.get_batch_compact(ids) if karel
+                else split.get_batch(ids))
+        want = {k: np.ascontiguousarray(v) for k, v in host.items()
+                if k not in drop and k != "id"}
+        check(set(batch) - {"id"} == set(want),
+              f"{name}: streamed keys {sorted(batch)}, expected {sorted(want)}")
+        for key, v in want.items():
+            t = batch[key]
+            check(t.device == torch.device(DEVICE, t.device.index)
+                  and t.dtype == torch.from_numpy(v).dtype
+                  and np.array_equal(t.cpu().numpy(), v),
+                  f"{name}: streamed {key} differs from the split's host "
+                  f"batch of the same ids")
+        if cache is not None:
+            rows = torch.as_tensor([split.index[i] for i in ids],
+                                   device=DEVICE)
+            check(set(cache.data) == set(want)
+                  and all(torch.equal(batch[k], v.index_select(0, rows))
+                          for k, v in cache.data.items()),
+                  f"{name}: a streamed batch differs from the device "
+                  f"cache's gather of its rows")
+    return {"batches_checked": len(got), "make_ms": make_ms}
+
+
+def streamed_train(split, name, steps, log_step, dataset_type="karel",
+                   num_k=None, test_split=None, eval_batches=N_BATCHES):
+    """train_phase with the train split streamed (the Trainer builds no
+    device cache), adding the bytes shipped a step, sec_data_wait, and
+    check_streamed_batches' readings."""
+    def after(trainer):
+        pipe = trainer.pipe_train
+        check(trainer.cache is None and pipe is not None,
+              f"{name}: the trainer did not stream")
+        check(pipe._pool._shutdown, f"{name}: the pipeline's workers still "
+              f"run")
+        return {"bytes_per_step": pipe.bytes_shipped / steps,
+                **check_streamed_batches(trainer, split, name)}
+
+    with streaming():
+        res = train_phase(split, steps=steps, log_step=log_step,
+                          compare_plain=False, time_steps=False, name=name,
+                          dataset_type=dataset_type, num_k=num_k,
+                          test_split=test_split, eval_batches=eval_batches,
+                          after=after)
+    res["sec_data_wait"] = data_waits(
+        os.path.dirname(os.path.dirname(res["checkpoint"])))
+    print(f"{name} data: bytes a step {res['bytes_per_step']:.0f}, "
+          f"sec_data_wait {res['sec_data_wait']}, ms to make a batch "
+          f"{res['make_ms']}, streamed batches equal to the split's: "
+          f"{res['batches_checked']}", flush=True)
+    return res
+
+
+def loop_turns(split, test_split=None, dataset_type="karel", num_k=None,
+               steps=DATA_TURN_STEPS, log_step=DATA_TURN_LOG_STEP):
+    """Trainer s/step of the device-cache loop and of the streamed one, in
+    turns cache, stream, stream, cache (runs of `steps` steps)."""
+    rates = {"cache": [], "stream": []}
+    waits = []
+    for turn, mode in enumerate(("cache", "stream", "stream", "cache")):
+        train_dir = os.path.join(OUT_DIR, f"turn_{dataset_type}_{turn}")
+        shutil.rmtree(train_dir, ignore_errors=True)
+        with streaming(mode == "stream"):
+            trainer = Trainer(trainer_args(train_dir, steps, log_step,
+                                           dataset_type=dataset_type,
+                                           num_k=num_k),
+                              split, test_split or split, device=DEVICE)
+        check((trainer.cache is None) == (mode == "stream"),
+              f"turn {turn}: the trainer did not take the {mode} loop")
+        trainer.train(max_steps=steps)
+        torch.cuda.synchronize()
+        rates[mode].append(rate(train_dir, steps, log_step))
+        if mode == "stream":
+            waits += data_waits(train_dir)
+    res = {"card": CARD, "dataset_type": dataset_type, "s_per_step": rates,
+           "stream_sec_data_wait": waits,
+           "median_s_per_step": {m: float(np.median(r))
+                                 for m, r in rates.items()}}
+    print("data turns " + json.dumps(res), flush=True)
+    return res
+
+
+def streamed_resume(tag, split, test_split, dataset_type="karel",
+                    num_k=None, steps=RESUME_STEPS):
+    """resume_phase's bitwise check on the streamed loop: two runs of
+    `steps` steps and a run stopped at steps // 2 and resumed by a new
+    Trainer (which fast-forwards its id stream) save equal checkpoints."""
+    run = functools.partial(resume_run, f"stream_{tag}", split, test_split,
+                            dataset_type, num_k, steps)
+    with streaming():
+        runs = resumed_equal(tag, run, steps)
+    check(runs.trainer.pipe_train is not None, f"{tag}: not streamed")
+    res = {"steps": steps, "two_runs_bitwise_equal": runs.same_runs,
+           "resumed_run_bitwise_equal": runs.same_resumed}
+    print(f"stream_resume_{tag} " + json.dumps(res), flush=True)
+    check(runs.same_runs, f"{tag}: two streamed runs from one seed differ "
+          f"on the card")
+    check(runs.same_resumed, f"{tag}: the resumed streamed run differs from "
+          f"the uninterrupted one")
+    return res
+
+
+def profiled_run(split):
+    """A streamed Karel run of PROFILED_RUN_STEPS steps with
+    --profile_steps 1 --profile_start 1 --sample_images: the Chrome trace
+    of step 1 must parse and hold exactly one train step's kernel launches
+    (125 events named KERNEL_NAME), and the test-sample eval of step 0 must
+    write four PNGs that decode to their expected sizes."""
+    train_dir = os.path.join(OUT_DIR, "profiled")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    args = trainer_args(train_dir, PROFILED_RUN_STEPS, PROFILED_RUN_STEPS,
+                        extra_flags=("--profile_steps", "1",
+                                     "--profile_start", "1",
+                                     "--sample_images"))
+    with streaming():
+        trainer = Trainer(args, split, split, device=args.device)
+    cfg = trainer.cfg
+    per_step, per_sample = lstm_launches(cfg)
+    fused_lstm.reset_launches()
+    t0 = time.perf_counter()
+    trainer.train(max_steps=PROFILED_RUN_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fused_lstm.fused_lstm_step.launches
+    check(launches == PROFILED_RUN_STEPS * per_step + per_sample,
+          f"profiled run: {launches} launches, expected "
+          f"{PROFILED_RUN_STEPS} x {per_step} + {per_sample}")
+    trace = os.path.join(train_dir, "profile", "trace_steps_1-2.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    lstm = [e for e in kernels if KERNEL_NAME in e.get("name", "")]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    check(len(lstm) == per_step,
+          f"the profiled step's trace names {KERNEL_NAME} {len(lstm)} "
+          f"times, expected {per_step}")
+
+    V, L = cfg.dim_program_token, cfg.max_program_len
+    T, A, P = cfg.max_demo_len, cfg.action_space, cfg.per_dim
+    pngs = {}
+    for kind in ("program", "demo", "action", "per"):
+        path = os.path.join(train_dir, "samples", f"step_0_{kind}.png")
+        pngs[kind] = list(read_png(path).shape)
+    t_demo = pngs["demo"][1] // 80  # states of the first demo drawn
+    want = {"program": [3 * (3 * V + 4), 3 * L],
+            "demo": [80, 80 * t_demo, 3], "action": [8 * A, 8 * T, 3],
+            "per": [8 * (2 * P + 1), 8 * t_demo]}
+    check(pngs == want and 2 <= t_demo <= T,
+          f"sample PNGs {pngs}, expected {want}")
+    res = {"card": CARD, "seconds": seconds, "launches": launches,
+           "trace_mb": os.path.getsize(trace) / 1e6,
+           "trace_kernels": len(kernels), "trace_lstm_kernels": len(lstm),
+           "trace_gpu_memcpy": len(copies),
+           "lstm_device_us": sum(e.get("dur", 0) for e in lstm),
+           "kernels_device_us": sum(e.get("dur", 0) for e in kernels),
+           "png_shapes": pngs}
+    print("profiled " + json.dumps(res), flush=True)
+    return res
+
+
+def data_phase(split, vizdoom_splits):
+    """The data path on the card: the generator's two engines against each
+    other and the in-memory split; streamed training (Karel and ViZDoom at
+    full width, exact launches, a falling loss, gradients card vs CPU, the
+    checkpoint evaluated), the streamed loop beside the device cache in
+    turns, bitwise exact resume when streamed, and a profiled run that
+    writes the sample PNGs."""
+    vz_train, vz_test, _ = vizdoom_splits
+    res = {"card": CARD,
+           "generation": timed("data generation", generation_check, split)}
+    res["karel"] = timed("data karel streamed", streamed_train, split,
+                         "karel_streaming", DATA_STEPS, DATA_LOG_STEP)
+    res["turns"] = timed("data turns", loop_turns, split)
+    res["resume_karel"] = timed("data karel resume", streamed_resume,
+                                "karel", split, split)
+    res["vizdoom"] = timed("data vizdoom streamed", streamed_train, vz_train,
+                           "vizdoom_streaming", DATA_VZD_STEPS,
+                           DATA_VZD_LOG_STEP, "vizdoom", VZD_K, vz_test,
+                           VZD_EVAL_BATCHES)
+    res["turns_vizdoom"] = timed("data vizdoom turns", loop_turns, vz_train,
+                                 vz_test, "vizdoom", VZD_K, DATA_VZD_STEPS,
+                                 DATA_VZD_LOG_STEP)
+    res["resume_vizdoom"] = timed("data vizdoom resume", streamed_resume,
+                                  "vizdoom", vz_train, vz_test, "vizdoom",
+                                  VZD_K)
+    res["profiled"] = timed("data profiled", profiled_run, split)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1763,6 +2135,7 @@ def main():
     background.shutdown()
     vizdoom = timed("vizdoom", vizdoom_phase, *vizdoom_splits)
     bf16 = timed("bf16", bf16_phase, split, vizdoom_splits)
+    data = timed("data", data_phase, split, vizdoom_splits)
     print(f"phase all: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
 
     def contract(r):  # the contract's names, device times of this run
@@ -1786,7 +2159,10 @@ def main():
             "train_scheduled_sampling": ss["launches"],
             "vizdoom_train": vizdoom["train"]["launches"],
             "vizdoom_beam": vizdoom["beam_launches"],
-            **{f"bf16_{k}": n for k, n in bf16["launches"].items()}},
+            **{f"bf16_{k}": n for k, n in bf16["launches"].items()},
+            "karel_streaming_train": data["karel"]["launches"],
+            "vizdoom_streaming_train": data["vizdoom"]["launches"],
+            "profiled_step": data["profiled"]["trace_lstm_kernels"]},
         "shapes": [dict(r, **contract(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

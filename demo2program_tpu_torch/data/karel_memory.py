@@ -1,30 +1,19 @@
 """In-memory Karel split in the compact wire format, made from a seed.
 
-Follows the python backend of demo2program_tpu/data/karel_generator.py
-(program sampling, unique programs, demos rolled from batches of sampled
-initial states and kept when their length lies in [min_demo_len,
-max_demo_len]) but keeps only what `get_batch_compact`
-(data/dataset.py:283-312) serves: token ids, initial states and recorded
-actions. No HDF5 file and no h5py are involved, so a split can be made on
-any host and handed to the Evaler like a dataset split.
+`generate_split` runs the Karel generator (data/karel_generator.py, python
+backend) and keeps only what `get_batch_compact` (data/dataset.py:283-312)
+serves: token ids, initial states and recorded actions. No HDF5 file and
+no h5py are involved, so a split can be made on any host and handed to the
+Evaler like a dataset split; `split_from_records` does the same for the
+records of either backend.
 """
 
 from dataclasses import dataclass
 
 import numpy as np
 
-from demo2program_tpu_torch.dsl import karel_interp, karel_parser
-from demo2program_tpu_torch.dsl.karel_sampler import KarelProgramSampler
-from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
-from demo2program_tpu_torch.envs.karel import KarelStateGenerator, KarelWorld
-from demo2program_tpu_torch.envs.karel import batch_to_states
-
-# the generator's fixed settings (data/karel_generator.py:GeneratorConfig)
-_H = _W = 8
-_WALL_PROB = 0.1
-_MAX_STMT_DEPTH, _MAX_NESTING_DEPTH = 6, 4
-_MAX_DEMO_TRIALS, _MAX_TEST_DEMO_TRIALS = 100, 10000
-_TRIAL_CHUNK = 64  # states sampled per generate_batch call
+from demo2program_tpu_torch.data.karel_generator import (
+    GeneratorConfig, generate_records)
 
 
 @dataclass(frozen=True)
@@ -37,47 +26,16 @@ class SplitConfig:
     max_demo_len: int = 20
     min_demo_len: int = 8
 
-
-def _roll_demos(ast, sgen, cfg, num_needed, max_trials):
-    """-> list of (wall, marker0, agent0, actions, state-history length)
-    for demos of `ast` whose length lies in [min_demo_len, max_demo_len]."""
-    demos = []
-    trials = 0
-    while len(demos) < num_needed and trials < max_trials:
-        chunk = min(_TRIAL_CHUNK, max_trials - trials)
-        trials += chunk
-        walls, markers0, agent0 = sgen.generate_batch(
-            chunk, _H, _W, _WALL_PROB)
-        for i, s0 in enumerate(batch_to_states(walls, markers0, agent0)):
-            if len(demos) >= num_needed:
-                break
-            world = KarelWorld(s0, make_error=True)
-            _, success = karel_interp.execute(ast, world)
-            if not success:
-                continue
-            if not cfg.min_demo_len <= len(world.s_h) <= cfg.max_demo_len:
-                continue
-            demos.append((walls[i], markers0[i], agent0[i],
-                          np.asarray(world.a_h, np.int8), len(world.s_h)))
-    return demos
-
-
-def _compact(demos, T):
-    """One item's seen (or unseen) demos -> its compact arrays, as
-    data/dataset.py:_CompactStore stores them."""
-    a_raw = np.zeros((len(demos), T), np.int8)
-    for i, d in enumerate(demos):
-        a_raw[i, :len(d[3])] = d[3]
-    return {
-        "c_wall": np.stack([d[0] for d in demos]).astype(np.uint8),
-        "c_marker": np.stack([d[1] for d in demos]).astype(np.uint8),
-        "c_agent": np.stack([d[2] for d in demos]).astype(np.uint8),
-        "c_a_raw": a_raw,
-        # a stored item's a_h matrix is as wide as its longest demo's
-        # action row (karel_generator._pad_stack)
-        "c_a_row_len": np.array([max(len(d[3]) for d in demos)], np.int32),
-        "demo_len": np.array([d[4] for d in demos], np.float32),
-    }
+    def generator_config(self):
+        """The generator's settings for this split: every program in the
+        train part, the generator's defaults for the rest."""
+        return GeneratorConfig(
+            num_train=self.num_programs, num_test=0, num_val=0,
+            seed=self.seed, max_program_length=self.max_program_len,
+            min_demo_length=self.min_demo_len,
+            max_demo_length=self.max_demo_len,
+            num_demo_per_program=self.k,
+            num_test_demo_per_program=self.test_k)
 
 
 class InMemoryKarelSplit:
@@ -102,40 +60,38 @@ class InMemoryKarelSplit:
 def generate_split(cfg=SplitConfig()):
     """Sample cfg.num_programs unique programs with k seen and test_k unseen
     demos each -> InMemoryKarelSplit."""
-    vocab = KarelVocab()
-    sampler = KarelProgramSampler(seed=cfg.seed)
-    sgen = KarelStateGenerator(seed=cfg.seed)
-    seen_programs = set()
-    cols = {}
-    ids = []
-    while len(ids) < cfg.num_programs:
-        code = sampler.random_code(max_depth=_MAX_STMT_DEPTH,
-                                   max_nesting_depth=_MAX_NESTING_DEPTH)
-        if code in seen_programs:
+    records = generate_records(cfg.generator_config(), "python",
+                               progress_every=0)
+    return split_from_records(records, cfg.max_program_len,
+                              cfg.max_demo_len)
+
+
+def split_from_records(records, max_program_len, max_demo_len):
+    """data/karel_generator.py:generate_records' items (data_info skipped)
+    -> InMemoryKarelSplit in the compact form the HDF5 reader serves
+    (data/dataset.py:_CompactStore), token rows padded to
+    `max_program_len` and action rows to `max_demo_len`."""
+    from demo2program_tpu_torch.data.dataset import _CompactStore
+
+    cols, ids = {}, []
+    for id_, grp in records:
+        if id_ == "data_info":
             continue
-        tokens = vocab.str2intseq(code)
-        if len(tokens) > cfg.max_program_len:
-            continue
-        ast, ok = karel_parser.parse(code)
-        if not ok:
-            raise ValueError(f"sampled program does not parse: {code}")
-        seen = _roll_demos(ast, sgen, cfg, cfg.k, _MAX_DEMO_TRIALS)
-        if len(seen) < cfg.k:
-            continue
-        test = _roll_demos(ast, sgen, cfg, cfg.test_k, _MAX_TEST_DEMO_TRIALS)
-        if len(test) < cfg.test_k:
-            continue
-        seen_programs.add(code)
-        program = np.zeros(cfg.max_program_len, np.int32)
-        program[:len(tokens)] = tokens
+        compact = _CompactStore._compact_of(grp, max_demo_len)
+        prog = grp["program"]
+        program = np.zeros(max_program_len, np.int32)
+        program[:len(prog)] = prog
         item = {"program_tokens": program,
-                "program_len": np.array([len(tokens)], np.float32)}
-        for pfx, demos in (("", seen), ("test_", test)):
-            item.update({pfx + key: v for key, v in
-                         _compact(demos, cfg.max_demo_len).items()})
+                "program_len": np.array([len(prog)], np.float32)}
+        for pfx in ("", "test_"):
+            for key in ("wall", "marker", "agent", "a_raw"):
+                item[f"{pfx}c_{key}"] = compact[pfx + key]
+            item[pfx + "c_a_row_len"] = np.array(
+                [compact[pfx + "a_row_len"]], np.int32)
+            item[pfx + "demo_len"] = compact[pfx + "demo_len"].astype(
+                np.float32)
         for key, v in item.items():
             cols.setdefault(key, []).append(v)
-        ids.append("no_{}_prog_len_{}_max_s_h_len_{}".format(
-            len(ids), len(tokens), int(max(d[4] for d in seen))))
+        ids.append(id_)
     return InMemoryKarelSplit({k: np.stack(v) for k, v in cols.items()},
                               ids)

@@ -13,6 +13,8 @@ Host-side metrics (syntax, canonical program, execution accuracy) live in
 eval/scorer.py.
 """
 
+import torch
+
 from demo2program_tpu_torch.models.metrics import sequence_metrics
 
 
@@ -80,12 +82,17 @@ def compute_loss(cfg, outputs, batch, model_name):
     return loss, report
 
 
-def program_eval_tensors(cfg, outputs, batch):
+def program_eval_tensors(cfg, outputs, batch, image_tensors=False):
     """Per-example tensors for the host/VM scorers, for the teacher-forced
-    and the decoded programs (and the beam set of beam decoding) (the fetch set of `evaler.py:258-280`); empty
-    for the induction baseline, which decodes no program. The JAX
-    function's pred_per / pred_action_probs feed the trainer's image
-    summaries, which are not ported."""
+    and the decoded programs (and the beam set of beam decoding) (the fetch
+    set of `evaler.py:258-280`). With `image_tensors`, also the trainer's
+    image summaries' perception head probabilities (`pred_per`,
+    (bs, k, T, P)) and first demo's action probabilities
+    (`pred_action_probs`, (bs, T, A)), demo2program_tpu/models/
+    objective.py:128-137, which the JAX function always returns; those two
+    are float32 whatever the compute dtype (JAX keeps the logits' dtype),
+    so they cross to numpy. Empty for the induction baseline, which decodes
+    no program."""
     if "pred_program_logits" not in outputs:
         return {}
     prog = _program_stat(outputs["pred_program_logits"], batch)
@@ -112,6 +119,11 @@ def program_eval_tensors(cfg, outputs, batch):
     for key in ("beam_tokens", "beam_lengths", "beam_scores"):
         if key in outputs:  # the whole beam set, for execution reranking
             res[key] = outputs[key]
+    if image_tensors and "pred_per_logits" in outputs:
+        res["pred_per"] = torch.sigmoid(outputs["pred_per_logits"]).float()
+    if image_tensors and "pred_action_logits" in outputs:
+        res["pred_action_probs"] = torch.softmax(
+            outputs["pred_action_logits"][:, 0], dim=-1).float()
     return res
 
 

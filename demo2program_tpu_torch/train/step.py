@@ -253,13 +253,15 @@ def make_train_step(state, cfg, model_name, seed=0):
 
 
 def make_eval_step(model, cfg, model_name, decode_mode="greedy",
-                   decode_seed=123):
+                   decode_seed=123, image_tensors=False):
     """Eval forward: loss/acc reports + program tensors for host/VM scoring
     (none for the induction baseline), with running batch-norm statistics.
     `decode_mode` is greedy | beam | syntax_greedy | syntax_sample; the
     samples of syntax_sample come from a generator seeded with
     `decode_seed` at every call, as the JAX step draws from one fixed key
-    (demo2program_tpu/train/step.py:198-233). Returns eval_step(batch) ->
+    (demo2program_tpu/train/step.py:198-233). `image_tensors` adds the
+    trainer's image summaries' probabilities to the evals
+    (objective.program_eval_tensors). Returns eval_step(batch) ->
     (report, evals), batch being a dict of tensors on the model's device."""
     kwargs = {} if decode_mode == "greedy" else {"decode_mode": decode_mode}
 
@@ -275,7 +277,8 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
         _, report = objective.compute_loss(cfg, out, batch, model_name)
         report.update(objective.greedy_action_report(cfg, out, batch,
                                                      model_name))
-        evals = objective.program_eval_tensors(cfg, out, batch)
+        evals = objective.program_eval_tensors(cfg, out, batch,
+                                               image_tensors)
         return report, evals
 
     return eval_step

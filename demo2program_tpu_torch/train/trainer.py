@@ -1,47 +1,63 @@
 """The trainer, every model family (`--model`) on Karel and ViZDoom.
 
-Port of demo2program_tpu/train/trainer.py with its device-cache loop
-(`_train_chunked`, :509-575): the train split lives on the device
-(train/device_cache.py: Karel's compact split, or ViZDoom's frames,
-percepts and action rows) and each step gathers its batch there, so a step
-copies nothing but its row indices from the host. The cadence is the JAX
-package's:
+Port of demo2program_tpu/train/trainer.py, both of its loops in one: by
+default the train split lives on the device (train/device_cache.py:
+Karel's compact split, or ViZDoom's frames, percepts and action rows) and
+each step gathers its batch there, so a step copies nothing but its row
+indices from the host (the JAX `_train_chunked`, :509-575); with
+D2P_KAREL_DEVICE_CACHE=0 / D2P_DOOM_DEVICE_CACHE=0, or a ViZDoom split
+larger than the card's free memory (JAX's fallback, with its warning), a
+data/pipeline.py BatchPipeline streams batches from the host instead,
+copied to the card ahead of the step (the JAX streaming loop, :136-192,
+448-494). The streamed train batches leave out the unseen demos, which the
+step does not read (JAX's `train_drop`; the induction baseline trains on
+them and keeps them), and the log's metrics rows carry `sec_data_wait`, the
+seconds the step waited for its batch. The cadence is the JAX package's:
 
   * a test-sample eval (greedy decode on the next batch of an endless
     shuffled test stream) whenever step % test_sample_step == 0, before the
-    step: log line, metrics.jsonl row, decoded triplets in samples.txt;
+    step: log line, metrics.jsonl row, decoded triplets in samples.txt, and
+    with `--sample_images` PNGs in <train_dir>/samples/ (`_write_sample_
+    images`: the program heat map, and on Karel the first demo's tiles, the
+    action map and the perception map);
   * the log line `[train step N] Loss: ... (sec/batch, instances/sec)` with
     the rate over the steps since the previous log line, and a
     metrics.jsonl row, whenever N % log_step == 0 and at the end;
   * a checkpoint `<train_dir>/ckpt/<N>.pt` whenever N % ckpt_save_step == 0,
-    and at the end.
+    and at the end;
+  * with `--profile_steps P`, a torch.profiler trace (CPU, and the card's
+    kernels on cuda) of steps [start + profile_start, start + profile_start
+    + P) written as a Chrome trace under <train_dir>/profile/. The JAX
+    package traces its streaming loop only; here both loops honour it.
 
 Relaunching into a train_dir that has checkpoints resumes from the newest
 one (step, parameters, BN statistics, Adam state) and trains to the target
-recorded in resume.json; batches are a pure function of (seed, step), so
-the resumed run replays the uninterrupted one exactly. On the card that
-needs deterministic kernels, a process-wide mode that the entry point sets
-before any CUDA work (train/step.py:deterministic_cuda, which the CLIs call
-first thing: cuBLAS reads CUBLAS_WORKSPACE_CONFIG at its first handle);
-`Trainer` on the card raises without it. `--checkpoint` warm-starts a fresh
-train_dir from a trainer checkpoint (the whole train state, as the JAX
-restore does) or from a bare model state_dict.
+recorded in resume.json; batches are a pure function of (seed, step) (a
+streamed run fast-forwards its id stream by the resumed step), so the
+resumed run replays the uninterrupted one exactly. On the card that needs
+deterministic kernels, a process-wide mode that the entry point sets before
+any CUDA work (train/step.py:deterministic_cuda, which the CLIs call first
+thing: cuBLAS reads CUBLAS_WORKSPACE_CONFIG at its first handle); `Trainer`
+on the card raises without it. `--checkpoint` warm-starts a fresh train_dir
+from a trainer checkpoint (the whole train state, as the JAX restore does)
+or from a bare model state_dict; a JAX orbax checkpoint directory is not
+read (models/convert.py brings flax variables over).
 
 Differences from the JAX trainer: the model is drawn with
 models/ops.py:init_parameters from `--seed` (same initializers, other
-numbers); the batch order follows the same rule with numpy's generator, not
-jax.random (train/device_cache.py; ViZDoom's follows the JAX cache's numpy
-stream); checkpoints are torch files (train/checkpoint.py). The induction
-baseline trains on the test demos' actions, so its device cache keeps the
-`test_*` arrays, and its test-sample evals write no program samples, as in
-the JAX trainer. With `--scheduled_sampling` the draws of step s are a pure
-function of (seed, s) (train/step.py:step_generator), so exact resume still
-holds. ViZDoom trains from a DoomDeviceCache and samples test batches in
-the full wire format, as the JAX trainer does (trainer.py:136-192); its
-bs 32 -> 8 second stage is a new run with `--checkpoint` and
-`--batch_size 8`. Not ported: the streaming BatchPipeline path
-(a ViZDoom split that does not fit the card raises), `--sample_images`
-and `--profile_steps`.
+numbers); the device cache's batch order follows the same rule with numpy's
+generator, not jax.random (train/device_cache.py; ViZDoom's follows the JAX
+cache's numpy stream); the streamed step s trains on the stream's draw s
+(JAX spends draw 0 on initialising its state, so its step s trains on draw
+s + 1); checkpoints are torch files (train/checkpoint.py); the sample demo
+strip is scaled to 0..255 (JAX writes the [0, 1] floats cast to uint8). The
+induction baseline trains on the test demos' actions, so its device cache
+keeps the `test_*` arrays, and its test-sample evals write no program
+samples, as in the JAX trainer. With `--scheduled_sampling` the draws of
+step s are a pure function of (seed, s) (train/step.py:step_generator), so
+exact resume still holds. ViZDoom samples test batches in the full wire
+format, as the JAX trainer does; its bs 32 -> 8 second stage is a new run
+with `--checkpoint` and `--batch_size 8`.
 """
 
 import json
@@ -51,27 +67,42 @@ import time
 import numpy as np
 import torch
 
+from demo2program_tpu_torch.data.pipeline import BatchPipeline
+from demo2program_tpu_torch.envs.karel import KarelWorld, batch_to_states
 from demo2program_tpu_torch.eval.evaler import (
     config_from_dataset, fetch_batch, program_vocab)
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.train import checkpoint
+from demo2program_tpu_torch.tools.karel_render import state2image
 from demo2program_tpu_torch.train.device_cache import (
-    DoomDeviceCache, KarelDeviceCache)
+    DoomDeviceCache, KarelDeviceCache, estimate_cache_bytes)
 from demo2program_tpu_torch.train.step import (
     TrainState, make_eval_step, make_train_step, require_deterministic_cuda,
     resolve_device, to_device)
 from demo2program_tpu_torch.utils import log
+from demo2program_tpu_torch.utils.png import write_png
+
+# what the train step never reads, left out of a streamed train batch
+# (demo2program_tpu/train/trainer.py:139-148); the induction baseline trains
+# on the unseen demos' actions and keeps everything
+TRAIN_DROP = {
+    "karel": ("test_c_wall", "test_c_marker", "test_c_agent",
+              "test_c_a_raw", "test_c_a_row_len", "test_demo_len"),
+    "vizdoom": ("test_s_h", "test_a_h", "test_a_h_tokens", "test_per",
+                "test_demo_len", "test_init_pos", "test_init_pos_len"),
+}
+
+
+def _cache_switch(dataset_type):
+    """D2P_KAREL_DEVICE_CACHE / D2P_DOOM_DEVICE_CACHE: "0" streams."""
+    name = {"karel": "D2P_KAREL_DEVICE_CACHE",
+            "vizdoom": "D2P_DOOM_DEVICE_CACHE"}[dataset_type]
+    return os.environ.get(name, "1") != "0"
 
 
 class Trainer:
     def __init__(self, args, dataset_train, dataset_test, device="cuda"):
-        for value, flag in ((getattr(args, "sample_images", False),
-                             "--sample_images"),
-                            (getattr(args, "profile_steps", 0),
-                             "--profile_steps")):
-            if value:
-                raise NotImplementedError(f"{flag} is not ported")
         self.args = args
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -97,16 +128,27 @@ class Trainer:
                                 args.lr_weight_decay)
         self.train_step = make_train_step(self.state, cfg, args.model,
                                           seed=args.seed)
-        self.eval_step = make_eval_step(self.model, cfg, args.model)
+        self.eval_step = make_eval_step(self.model, cfg, args.model,
+                                        image_tensors=args.sample_images)
         induction = args.model == "induction_baseline"
-        if cfg.dataset_type == "vizdoom":
-            self.cache = DoomDeviceCache(
-                dataset_train, self.device, args.batch_size, args.seed,
-                include_test_actions=induction)
-        else:
+        self.cache = self.pipe_train = None
+        if not _cache_switch(cfg.dataset_type):
+            log.info("%s device cache off: streaming the train split",
+                     cfg.dataset_type)
+        elif cfg.dataset_type == "karel":
             self.cache = KarelDeviceCache(
                 dataset_train, self.device, args.batch_size, args.seed,
                 include_test=induction)
+        elif self._doom_cache_fits(dataset_train):
+            self.cache = DoomDeviceCache(
+                dataset_train, self.device, args.batch_size, args.seed,
+                include_test_actions=induction)
+        if self.cache is None:
+            self.pipe_train = BatchPipeline(
+                dataset_train, args.batch_size, shuffle=True, seed=args.seed,
+                device=self.device,
+                drop_keys=() if induction else TRAIN_DROP[cfg.dataset_type],
+                compact=cfg.dataset_type == "karel")
         self.test_stream = _InfiniteEval(dataset_test, args.batch_size,
                                          args.seed, cfg.dataset_type)
 
@@ -120,6 +162,8 @@ class Trainer:
                          args.checkpoint)
             self.state.load_state_dict(checkpoint.load(latest))
             self._auto_resumed = True
+            if self.pipe_train is not None:  # replay the id stream
+                self.pipe_train.fast_forward(self.state.step)
             log.infov("Auto-resumed from %s (step %d; the batch sequence "
                       "replays deterministically)", latest, self.state.step)
         elif args.checkpoint:
@@ -132,6 +176,21 @@ class Trainer:
         self.vocab = program_vocab(cfg.dataset_type, cfg.perception_type,
                                    cfg.level)
 
+    def _doom_cache_fits(self, dataset):
+        """Does the ViZDoom train split fit the card's free memory? If not,
+        the trainer streams, with the JAX trainer's warning
+        (demo2program_tpu/train/trainer.py:170-184). The CPU holds any."""
+        if self.device.type != "cuda":
+            return True
+        est = estimate_cache_bytes(dataset)
+        free, _ = torch.cuda.mem_get_info(self.device)
+        if est <= free:
+            return True
+        log.warn("doom train split ~%.1f GB exceeds the card's free memory "
+                 "(%.1f GB); falling back to streaming", est / 1e9,
+                 free / 1e9)
+        return False
+
     # -- checkpointing --------------------------------------------------------
     def save(self):
         step = self.state.step
@@ -143,7 +202,14 @@ class Trainer:
 
     def restore(self, path):
         """Warm start from a trainer checkpoint (the whole train state) or
-        a bare model state_dict (parameters and BN statistics)."""
+        a bare model state_dict (parameters and BN statistics). A JAX
+        orbax checkpoint (a directory) is not read: reading it needs orbax
+        and jax, which the port never imports."""
+        if os.path.isdir(path):
+            raise ValueError(
+                f"--checkpoint {path} is a directory (a JAX orbax "
+                f"checkpoint?); the port reads its own .pt checkpoints: "
+                f"bring flax variables over with models/convert.py")
         ckpt = checkpoint.load(path)
         if checkpoint.is_train_state(ckpt):
             self.state.load_state_dict(ckpt)
@@ -194,6 +260,69 @@ class Trainer:
             f.write("\n".join(lines) + "\n")
         log.info("sample @%d | gt: %s | greedy: %s", step, lines[1][8:],
                  lines[3][8:])
+        if self.args.sample_images:
+            self._write_sample_images(step, batch, evals)
+
+    def _write_sample_images(self, step, batch, evals):
+        """PNG summaries of a test-sample step in <train_dir>/samples/
+        (demo2program_tpu/train/trainer.py:354-424, the reference's image
+        summaries `model_full.py:1223-1297`), from the host batch and evals:
+        step_N_program.png, the gt / pred / greedy programs' one-hot rows
+        (gray, 3x3 pixels a cell); on a Karel batch also step_N_demo.png,
+        the first demo's states as tiles, step_N_action.png, the first
+        demo's action probabilities (R) over its recorded actions (G), 8x8
+        a cell, and step_N_per.png, the replayed perception vectors above
+        the perception head's probabilities (gray, 8x8)."""
+        out_dir = os.path.join(self.train_dir, "samples")
+        os.makedirs(out_dir, exist_ok=True)
+        V = self.cfg.dim_program_token
+        rows = [np.eye(V, dtype=np.uint8)[batch["program_tokens"][0]].T * 255]
+        for key in ("pred_tokens", "greedy_tokens"):
+            if key in evals:
+                rows.append(np.eye(V, dtype=np.uint8)[evals[key][0]].T * 255)
+        sep = np.full((2, rows[0].shape[1]), 128, np.uint8)
+        heat = np.concatenate(
+            sum(([r, sep] for r in rows), [])[:-1], axis=0)
+        write_png(os.path.join(out_dir, f"step_{step}_program.png"),
+                  np.kron(heat, np.ones((3, 3), np.uint8)))
+
+        if self.cfg.dataset_type != "karel" or "c_wall" not in batch:
+            return
+        actions = batch["c_a_raw"][0, 0]
+        dlen = int(batch["demo_len"][0, 0])
+        world = KarelWorld(batch_to_states(
+            batch["c_wall"][0, :1], batch["c_marker"][0, :1],
+            batch["c_agent"][0, :1])[0], make_error=False)
+        for a in actions[:dlen - 1]:
+            world.state_transition(int(a))
+        strip = np.concatenate([state2image(s) for s in world.s_h], axis=1)
+        write_png(os.path.join(out_dir, f"step_{step}_demo.png"),
+                  (strip * 255).astype(np.uint8))
+
+        if "pred_action_probs" in evals:
+            probs = evals["pred_action_probs"][0]  # (T, A)
+            T_, A_ = probs.shape
+            gt_oh = np.zeros((T_, A_), np.float32)
+            n_act = min(dlen - 1, T_)
+            gt_oh[np.arange(n_act), actions[:n_act]] = 1.0
+            if n_act < T_:
+                gt_oh[n_act, A_ - 1] = 1.0  # <e>
+            rgb = np.stack([probs.T, gt_oh.T, np.zeros_like(probs.T)],
+                           axis=-1)
+            write_png(os.path.join(out_dir, f"step_{step}_action.png"),
+                      np.kron((rgb * 255).astype(np.uint8),
+                              np.ones((8, 8, 1), np.uint8)))
+
+        if "pred_per" in evals:
+            gt_per = np.asarray(world.p_v_h, np.float32).T  # (P, T')
+            pred = evals["pred_per"][0, 0].T  # (P, T)
+            Tn = gt_per.shape[1]
+            per_map = np.concatenate(
+                [gt_per, np.full((1, Tn), 0.5, np.float32), pred[:, :Tn]],
+                axis=0)
+            write_png(os.path.join(out_dir, f"step_{step}_per.png"),
+                      np.kron((per_map * 255).astype(np.uint8),
+                              np.ones((8, 8), np.uint8)))
 
     def _test_sample(self):
         """One eval-mode forward with greedy decode on a test batch."""
@@ -223,29 +352,78 @@ class Trainer:
                 json.dump({"target_step": target}, f)
         if start >= target:
             log.infov("Nothing to do: step %d >= target %d", start, target)
+            self.close()
             return
         log.infov("Training Starts! (step %d -> %d)", start, target)
+        p_start = start + args.profile_start
+        p_end = p_start + args.profile_steps
+        profiler = None
         # the rate in a log line covers the steps since the previous one,
         # test-sample and checkpoint time excluded
         win_t, win_s = time.time(), start
         s = start
-        while s < target:
-            if s % args.test_sample_step == 0:
-                self._test_sample()
-                win_t, win_s = time.time(), s
-            report = self.train_step(self.cache.batch(s))
-            s += 1
-            if s % args.log_step == 0 or s == target:
-                report = self._fetch(report)
-                now = time.time()
-                self._log_line("train", s, report,
-                               (now - win_t) / max(s - win_s, 1))
-                self._write_metrics("train", s, report)
-                win_t, win_s = now, s
-            if s % args.ckpt_save_step == 0 and s < target:
-                self.save()
-                win_t, win_s = time.time(), s
-        self.save()
+        try:
+            while s < target:
+                if s % args.test_sample_step == 0:
+                    self._test_sample()
+                    win_t, win_s = time.time(), s
+                if s == p_start < p_end:
+                    profiler = self._start_profile(s)
+                t0 = time.time()
+                batch = (self.cache.batch(s) if self.cache is not None
+                         else next(self.pipe_train))
+                t_data = time.time() - t0
+                report = self.train_step(batch)
+                s += 1
+                if profiler is not None and s == p_end:
+                    profiler = self._stop_profile(profiler, p_start, s)
+                if s % args.log_step == 0 or s == target:
+                    report = self._fetch(report)
+                    if self.pipe_train is not None:
+                        report["sec_data_wait"] = t_data
+                    now = time.time()
+                    self._log_line("train", s, report,
+                                   (now - win_t) / max(s - win_s, 1))
+                    self._write_metrics("train", s, report)
+                    win_t, win_s = now, s
+                if s % args.ckpt_save_step == 0 and s < target:
+                    self.save()
+                    win_t, win_s = time.time(), s
+            self.save()
+        finally:
+            if profiler is not None:  # the run ended inside the window
+                self._stop_profile(profiler, p_start, s)
+            self.close()
+
+    def close(self):
+        """Stop the streaming pipeline's worker threads (a Trainer trains
+        once to its target)."""
+        if self.pipe_train is not None:
+            self.pipe_train.close()
+
+    # -- profiling -------------------------------------------------------------
+    def _start_profile(self, step):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        log.infov("profiler trace started at step %d", step)
+        return profiler
+
+    def _stop_profile(self, profiler, first, end):
+        """Stop after the work of steps [first, end) has run on the device
+        and write the Chrome trace -> None."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out_dir = os.path.join(self.train_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"trace_steps_{first}-{end}.json")
+        profiler.export_chrome_trace(path)
+        log.infov("profiler trace of steps [%d, %d) written to %s", first,
+                  end, path)
+        return None
 
 
 class _InfiniteEval:

@@ -26,11 +26,14 @@ from demo2program_tpu_torch.data.karel_memory import (
 from demo2program_tpu_torch.eval.evaler import Evaler, config_from_dataset
 from demo2program_tpu_torch.models.convert import flax_to_state_dict
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
-from demo2program_tpu_torch.train.step import to_device
+from demo2program_tpu_torch.train.step import make_eval_step, to_device
 
 from tests.test_torch_models import GAP, _random_variables
 
 ATOL = 1e-4
+# what the JAX eval step returns for the trainer's image summaries: the port
+# computes them only on request, and the Evaler does not ask
+IMAGE_KEYS = {"pred_per", "pred_action_probs"}
 BS, N_BATCHES = 4, 2
 SPLIT = SplitConfig(num_programs=BS * N_BATCHES, seed=3, k=3, test_k=2,
                     max_program_len=12, max_demo_len=6, min_demo_len=3)
@@ -92,6 +95,8 @@ def _require_no_greedy_ties(evaler, batch):
 
 def test_eval_step_and_scores_match_jax(slice_pair):
     split, evaler, jax_out, _ = slice_pair
+    with_images = make_eval_step(evaler.model, evaler.cfg, "full",
+                                 image_tensors=True)
     for batch, (rep_j, ev_j, sc_j) in zip(_batches(split), jax_out):
         _require_no_greedy_ties(evaler, batch)
         rep_t, ev_t, sc_t = _port_batch(evaler, batch)
@@ -99,9 +104,12 @@ def test_eval_step_and_scores_match_jax(slice_pair):
         for k in rep_j:
             np.testing.assert_allclose(float(rep_t[k]), float(rep_j[k]),
                                        atol=ATOL, rtol=0, err_msg=k)
-        # the image-summary tensors pred_per / pred_action_probs are not
-        # ported (no trainer yet)
-        assert set(ev_j) - set(ev_t) == {"pred_per", "pred_action_probs"}
+        # every tensor; the image summaries' pred_per and
+        # pred_action_probs from the step that asks for them
+        assert set(ev_j) - set(ev_t) == IMAGE_KEYS
+        _, images = with_images(to_device(batch, evaler.device))
+        assert set(images) == set(ev_j)
+        ev_t.update({k: images[k].numpy() for k in IMAGE_KEYS})
         for k in ev_t:
             want = np.asarray(ev_j[k])
             if want.dtype.kind in "iub":

@@ -29,8 +29,12 @@ names = [m.name for m in
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert "demo2program_tpu_torch.tools.eval_execution" in names
-assert "demo2program_tpu_torch.tools.inspect_output" in names
+for name in ("tools.eval_execution", "tools.inspect_output", "native",
+             "data.karel_generator", "data.merge_datasets", "data.pipeline",
+             "cli.generator_cli", "tools.visualize_data", "utils.png"):
+    assert "demo2program_tpu_torch." + name in names, name
+# nothing builds at import
+assert sys.modules["demo2program_tpu_torch.native"]._lib is None
 print(len(names))
 """
 

@@ -222,10 +222,18 @@ def test_evaler_reads_trainer_checkpoints(split, trained):
 
 
 def test_unported_options_raise(split, tmp_path):
-    for extra, what in ((["--sample_images"], "sample_images"),
-                        (["--profile_steps", "3"], "profile_steps")):
-        with pytest.raises(NotImplementedError, match=what):
-            Trainer(_args(tmp_path, *extra), split, split, device="cpu")
+    """What stays unported raises: a JAX orbax checkpoint directory as
+    --checkpoint (reading it needs orbax and jax; models/convert.py brings
+    flax variables over). --sample_images and --profile_steps are ported
+    (tests/test_torch_pipeline.py) and build a Trainer."""
+    orbax_dir = tmp_path / "ckpt" / "20" / "default"
+    orbax_dir.mkdir(parents=True)
+    with pytest.raises(ValueError, match="orbax"):
+        Trainer(_args(tmp_path / "run", "--checkpoint", str(orbax_dir)),
+                split, split, device="cpu")
+    for extra in (["--sample_images"], ["--profile_steps", "3"]):
+        Trainer(_args(tmp_path / extra[0][2:], *extra), split, split,
+                device="cpu").close()
 
 
 # -- the explicit device -------------------------------------------------------
