@@ -127,7 +127,23 @@ without them. It:
      --profile_start 1 --sample_images: the Chrome trace of step 1 must
      parse and name the LSTM kernel exactly 125 times, and the four sample
      PNGs of step 0 must decode (utils/png.py) to their expected sizes;
- 13. prints one JSON line describing the kernel: its time, the plain
+ 13. dp phase (data parallelism, parallel/mesh.py, through the Trainer;
+     each rank a process spawned with torch.multiprocessing and a file
+     store): NCCL at world 1, 20 Karel steps whose checkpoint must equal the
+     train phase's single-process checkpoint bit for bit; then gloo at world
+     2 with both ranks on cuda:0 (NCCL takes one card a rank): 10 Karel
+     steps from the replicated device cache and 10 ViZDoom steps from the
+     sharded one, every step's loss (1e-4) and grad norm (rtol 1e-4) held
+     against the single process's step from the same parameters on the same
+     global batch, the two ranks' parameters bitwise equal after every step,
+     exact launches per rank (10 x 125 + 190, 10 x 60 + 99), a run stopped
+     at step 5 and resumed bitwise equal to the uninterrupted one; prints
+     the distance of an independent single-process run over the same
+     batches and a line with the world-2 step's time split into compute,
+     the gradients' all-reduce and the optimizer, with the card's name and
+     power limit. The kernel phase also holds the kernel at a rank's shapes
+     ((160, 48), (16, 512), (400, 432), (400, 512));
+ 14. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
      or by operations) at every shape, with every path's launches, then
@@ -159,6 +175,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from demo2program_tpu_torch import native
 from demo2program_tpu_torch.cli import evaler_cli, trainer_cli
@@ -181,9 +199,12 @@ from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
+from demo2program_tpu_torch.parallel.mesh import (
+    all_reduce_gradients, gather_rows, make_mesh)
 from demo2program_tpu_torch.tools import eval_execution
 from demo2program_tpu_torch.train import checkpoint
-from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
+from demo2program_tpu_torch.train.device_cache import (
+    DoomDeviceCache, KarelDeviceCache)
 from demo2program_tpu_torch.train.step import (
     compute_call, deterministic_cuda, forward_loss, full_precision_matmuls,
     global_norm, make_eval_step, make_train_step, sampling_prob, to_device)
@@ -217,6 +238,13 @@ BEAM_SHAPES = [(BATCH * BEAM_WIDTH, 512)]
 # second pass and the action and perception decoders run at (800, 512)
 VZD_K, VZD_TEST_K = 25, 10
 VIZDOOM_SHAPES = [(BATCH * VZD_K, 432), (BATCH * VZD_K, 512)]
+# a rank's rows of a data-parallel step at world DP_WORLD: Karel (bs / 2) *
+# k = 160 rows at D 48 (and 512, beam's shape), the program decoder at 16;
+# ViZDoom 400 rows at D 432 and 512
+DP_WORLD = 2
+DP_SHAPES = [(BATCH // DP_WORLD * SPLIT.k, 48), (BATCH // DP_WORLD, 512),
+             (BATCH // DP_WORLD * VZD_K, 432), (BATCH // DP_WORLD * VZD_K,
+                                                 512)]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s, and FLOP/s of the tensor cores' TF32 and bf16 products. The
 # f32 kernel takes three TF32 products per f32 product (3xTF32 split).
@@ -422,7 +450,7 @@ def kernel_phase():
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for B, D in (KERNEL_SHAPES + BEAM_SHAPES + BASELINE_SHAPES
-                     + VIZDOOM_SHAPES):
+                     + VIZDOOM_SHAPES + DP_SHAPES):
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=g, device=dev)
                         * scale).to(dtype)
@@ -2098,6 +2126,392 @@ def data_phase(split, vizdoom_splits):
     return res
 
 
+# the data-parallel phase: NCCL at world 1 over TRAIN_STEPS Karel steps
+# (checkpoint bitwise equal to train_phase's), then gloo at world DP_WORLD
+# with both ranks on the card: DP_STEPS Karel and ViZDoom steps logged every
+# step, the Karel run again stopped at DP_STEPS // 2 and resumed, and
+# DP_TIMING_STEPS timed steps. Every step's loss within LOSS_ATOL and grad
+# norm within NORM_RTOL of the single process's step on the same global
+# batch from the same parameters; an independent single-process run over
+# the same batches drifts away from step 2 on (Adam turns rounding into
+# steps: 4e-4 in loss by step 8 on the H100), so its distance is a reading.
+DP_STEPS, DP_TIMING_STEPS = 10, 3
+DP_DEVICE = "cuda:0"  # of every rank (gloo takes two ranks on one card)
+DP_BACKENDS = ("nccl", "gloo")  # of the world-1 run and the world-2 runs
+
+
+def _dp_rank(rank, world, backend, job_path, out_dir):
+    """One rank of dp_phase: the entry points' process-wide modes, a
+    process group over a file store, the job's runs -> rank<r>.pt."""
+    deterministic_cuda()
+    full_precision_matmuls()
+    job = torch.load(job_path, weights_only=False)
+    make_mesh(backend=backend, device=job["device"], rank=rank,
+              world_size=world, init_method=f"file://{job['store']}")
+    try:
+        out = {run["name"]: dp_run(job, run) for run in job["runs"]}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def replicas_equal(trainer):
+    """Are the parameters and BN statistics of every rank equal bit for
+    bit? (Their bits, summed into a zero row per rank across the group.)"""
+    tensors = list(trainer.model.parameters()) + [
+        b for b in trainer.model.buffers() if b.dtype == torch.float32]
+    bits = torch.cat([t.detach().reshape(-1) for t in tensors]).view(
+        torch.int32)
+    rows = gather_rows(bits[None], trainer.mesh)
+    return bool((rows == rows[0]).all())
+
+
+def dp_run(job, run):
+    """A Trainer of run["args"] on this rank (on job["device"], the
+    group's mesh) -> its launches, whether the replicas stayed equal after
+    every step, the global rows of each ViZDoom step, and with run["timed"]
+    the step's phase times."""
+    args = run["args"]
+    split = job[args.dataset_type]
+    trainer = Trainer(args, split, split, device=job["device"])
+    if run.get("target"):  # the killed run's stage target
+        if trainer.writes:
+            with open(os.path.join(run["train_dir"], "resume.json"),
+                      "w") as f:
+                json.dump({"target_step": run["target"]}, f)
+        trainer.mesh.barrier()
+    out = {"world": trainer.mesh.world, "rank": trainer.mesh.rank,
+           "backend": trainer.mesh.backend, "replicas_equal": [],
+           "steps": []}
+    if args.dataset_type == "vizdoom":
+        out["global_rows"] = [np.concatenate(trainer.cache.draws(s)[1])
+                              for s in range(args.max_steps)]
+    reference = (single_step_reference(trainer, split, out.get("global_rows"))
+                 if run.get("reference") and trainer.writes else None)
+    step = trainer.train_step
+
+    def checked(batch):
+        if reference is not None:  # from the parameters before the step
+            single = reference(trainer.state.step)
+        report = step(batch)
+        if reference is not None:
+            out["steps"].append({"loss": report["loss"].item(),
+                                 "grad_norm": report["grad_norm"].item(),
+                                 "single": single})
+        if trainer.mesh.world > 1:
+            out["replicas_equal"].append(replicas_equal(trainer))
+        return report
+
+    trainer.train_step = checked
+    fused_lstm.reset_launches()
+    trainer.train(max_steps=run.get("max_steps", args.max_steps))
+    synchronize(trainer.device)
+    out["launches"] = fused_lstm.fused_lstm_step.launches
+    out["launches_by_dtype"] = {
+        str(d): n for d, n in
+        fused_lstm.fused_lstm_step.launches_by_dtype.items()}
+    out["per_step"], out["per_sample"] = lstm_launches(trainer.cfg)
+    if run.get("timed"):
+        out["step_s"] = dp_step_times(trainer, job["timing_steps"])
+    return out
+
+
+def single_step_reference(trainer, split, global_rows=None):
+    """-> reference(s): (loss, grad norm) of one single-process train step
+    (no process group, no update) from a copy of the trainer's parameters
+    on the global batch of step s: the Karel cache's global draw, or the
+    ViZDoom rows `global_rows[s]` of an unsharded cache of `split`."""
+    cfg, device = trainer.cfg, trainer.device
+    model = get_model_class(cfg.model)(cfg).to(device)
+    if global_rows is None:
+        cache = trainer.cache
+        rows = cache.indices
+    else:
+        cache = DoomDeviceCache(split, device, trainer.args.batch_size,
+                                trainer.args.seed)
+        rows = lambda s: torch.as_tensor(global_rows[s], device=device)
+
+    def reference(s):
+        # launches made for the comparison do not count
+        counts = (fused_lstm.fused_lstm_step.launches,
+                  dict(fused_lstm.fused_lstm_step.launches_by_dtype))
+        model.load_state_dict(trainer.model.state_dict())
+        batch = {k: v.index_select(0, rows(s)) for k, v in cache.data.items()}
+        loss, _ = forward_loss(model, cfg, batch, cfg.model)
+        loss.backward()
+        norm = global_norm([p.grad for p in model.parameters()
+                            if p.grad is not None])
+        model.zero_grad(set_to_none=True)
+        fused_lstm.fused_lstm_step.launches = counts[0]
+        fused_lstm.fused_lstm_step.launches_by_dtype.update(counts[1])
+        return {"loss": loss.item(), "grad_norm": norm.item()}
+
+    return reference
+
+
+def dp_step_times(trainer, steps):
+    """Median seconds of a data-parallel step's phases, each ended by a
+    synchronise: `compute` (forward and backward, BatchNorm's and the
+    objective's all-reduces included), the gradients' all-reduce, and the
+    optimizer (after one warm-up step)."""
+    state, cfg, mesh = trainer.state, trainer.cfg, trainer.mesh
+    batch = trainer.cache.batch(0)
+
+    def now():
+        synchronize(trainer.device)
+        return time.perf_counter()
+
+    runs = []
+    for _ in range(steps + 1):
+        t0 = now()
+        loss, _ = forward_loss(state.model, cfg, batch, cfg.model, mesh)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        t1 = now()
+        all_reduce_gradients(state.params, mesh)
+        t2 = now()
+        state.apply_gradients()
+        t3 = now()
+        runs.append({"compute": t1 - t0, "all_reduce": t2 - t1,
+                     "optimizer": t3 - t2, "total": t3 - t0})
+    return {k: float(np.median([r[k] for r in runs[1:]])) for k in runs[0]}
+
+
+def dp_args(out_dir, run, dataset_type="karel"):
+    """trainer_args of a dp_phase run: run["steps"] a stage, a checkpoint
+    at its end, a log line every run["log_step"] steps."""
+    num_k = VZD_K if dataset_type == "vizdoom" else None
+    return trainer_args(os.path.join(out_dir, run["dir"]), run["steps"],
+                        run["log_step"], dataset_type=dataset_type,
+                        num_k=num_k)
+
+
+def spawn_ranks(world, backend, job, tag, device=None):
+    """Run `job` (its runs' trainer args made here) on `world` spawned
+    ranks, each on `device` (default DP_DEVICE; "cuda": a card a rank) ->
+    each rank's results, the job."""
+    out_dir = os.path.join(OUT_DIR, tag)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    job = dict(job, store=os.path.join(out_dir, "store"),
+               device=device or DP_DEVICE, timing_steps=DP_TIMING_STEPS)
+    for run in job["runs"]:
+        run["args"] = dp_args(out_dir, run, run.get("dataset_type", "karel"))
+        run["train_dir"] = run["args"].train_dir
+    job_path = os.path.join(out_dir, "job.pt")
+    torch.save(job, job_path)
+    mp.start_processes(_dp_rank, args=(world, backend, job_path, out_dir),
+                       nprocs=world, start_method="spawn")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)], job
+
+
+def train_rows(train_dir):
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f)
+                if r["split"] == "train"}
+
+
+def single_reference(split, dataset_type, train_dir, rows=None):
+    """The single-process run of dp_phase's gloo runs (no process group),
+    logging every step; with `rows`, each step's global rows of the ViZDoom
+    cache are the dp run's -> its metrics rows by step."""
+    shutil.rmtree(train_dir, ignore_errors=True)
+    num_k = VZD_K if dataset_type == "vizdoom" else None
+    trainer = Trainer(trainer_args(train_dir, DP_STEPS, 1,
+                                   dataset_type=dataset_type, num_k=num_k),
+                      split, split, device=DP_DEVICE)
+    check(trainer.mesh.group is None, "the reference run formed a group")
+    if rows is not None:
+        trainer.cache.indices = lambda s: rows[s]
+    trainer.train(max_steps=DP_STEPS)
+    synchronize(trainer.device)
+    return train_rows(train_dir)
+
+
+def dp_against_single(tag, dp, dp_dir, single=None):
+    """The dp run (rank 0's `dp` results and metrics, global values)
+    against the single process: each step's loss (LOSS_ATOL) and grad norm
+    (NORM_RTOL) against the single process's step from the same parameters
+    on the same global batch, gated; against the independent single-process
+    run `single` (its metrics rows), a reading."""
+    steps = dp["steps"]
+    loss = [abs(x["loss"] - x["single"]["loss"]) for x in steps]
+    norm = [abs(x["grad_norm"] - x["single"]["grad_norm"])
+            / x["single"]["grad_norm"] for x in steps]
+    check(len(steps) == DP_STEPS, f"{tag}: {len(steps)} steps compared")
+    res = {"step_loss_abs_diff": loss, "step_grad_norm_rel_diff": norm,
+           "loss": [x["loss"] for x in steps]}
+    if single is not None:
+        rows = train_rows(dp_dir)
+        check(sorted(rows) == sorted(single) == list(range(1, DP_STEPS + 1)),
+              f"{tag}: logged steps {sorted(rows)} and {sorted(single)}")
+        res["run_loss_abs_diff"] = [abs(rows[s]["loss"] - single[s]["loss"])
+                                    for s in sorted(rows)]
+        res["run_grad_norm_rel_diff"] = [
+            abs(rows[s]["grad_norm"] - single[s]["grad_norm"])
+            / single[s]["grad_norm"] for s in sorted(rows)]
+    print(f"dp {tag} vs single process " + json.dumps(res), flush=True)
+    check(max(loss) <= LOSS_ATOL, f"{tag}: a step's loss differs from the "
+          f"single process's step by {max(loss)}")
+    check(max(norm) <= NORM_RTOL, f"{tag}: a step's grad norm differs from "
+          f"the single process's step by {max(norm)} of it")
+    return res
+
+
+def check_dp_ranks(ranks, steps, world, backend):
+    """Every rank of every run of `steps` ({run name: steps taken}): the
+    mesh, the replicas bitwise equal after each step, and its launches
+    (a test sample at step 0, none in a resumed run) -> launches per rank
+    of each run."""
+    launches = {}
+    for name, n in steps.items():
+        for r in ranks:
+            got = r[name]
+            check(got["world"] == world and got["backend"] == backend,
+                  f"dp {name}: mesh {got['world']} {got['backend']}")
+            check(len(got["replicas_equal"]) == n
+                  and all(got["replicas_equal"]),
+                  f"dp {name}: the replicas differ after a step "
+                  f"{got['replicas_equal']}")
+            samples = int(not name.endswith("_resumed"))
+            want = n * got["per_step"] + samples * got["per_sample"]
+            check(got["launches"] == want, f"dp {name} rank {got['rank']}: "
+                  f"{got['launches']} launches, expected {n} x "
+                  f"{got['per_step']} + {samples} x {got['per_sample']}")
+        launches[name] = [r[name]["launches"] for r in ranks]
+    return launches
+
+
+def dp_phase(split, vizdoom_splits, train_ckpt):
+    """Data parallelism on the card (parallel/mesh.py) through the Trainer,
+    each rank a spawned process: NCCL at world 1 (a checkpoint bitwise equal
+    to the single-process trainer's `train_ckpt`), then gloo at world
+    DP_WORLD with both ranks on cuda:0 (NCCL takes one card a rank): Karel
+    and ViZDoom (the sharded device cache) runs held step by step against a
+    single-process run over the same global batches, the replicas bitwise
+    equal after every step, exact launches per rank, a resumed run bitwise
+    equal to the uninterrupted one, and the step's time split into compute
+    and the gradients' all-reduce."""
+    vz_train = vizdoom_splits[0]
+    karel = {"dataset_type": "karel"}
+    ranks, job = spawn_ranks(1, DP_BACKENDS[0], {"karel": split, "runs": [dict(
+        karel, name="nccl", dir="nccl", steps=TRAIN_STEPS,
+        log_step=TRAIN_LOG_STEP)]}, "dp_nccl")
+    nccl = ranks[0]["nccl"]
+    check(nccl["backend"] == DP_BACKENDS[0] and nccl["world"] == 1,
+          f"the NCCL run's mesh: {nccl}")
+    nccl_ckpt = checkpoint.checkpoint_path(job["runs"][0]["train_dir"],
+                                           TRAIN_STEPS)
+    nccl_equal = equal_states(checkpoint.load(nccl_ckpt),
+                              checkpoint.load(train_ckpt))
+    expected = TRAIN_STEPS * nccl["per_step"] + nccl["per_sample"]
+    check(nccl["launches"] == expected, f"NCCL world 1: {nccl['launches']} "
+          f"launches, expected {expected}")
+    check(nccl_equal, "NCCL world 1: the checkpoint differs from the "
+          "single-process trainer's")
+
+    half = DP_STEPS // 2
+    runs = [dict(karel, name="karel", dir="karel", steps=DP_STEPS,
+                 log_step=1, timed=True, reference=True),
+            dict(karel, name="karel_half", dir="karel_c", steps=DP_STEPS,
+                 log_step=1, max_steps=half),
+            dict(karel, name="karel_resumed", dir="karel_c", steps=DP_STEPS,
+                 log_step=1, target=DP_STEPS),
+            dict(name="vizdoom", dir="vizdoom", dataset_type="vizdoom",
+                 steps=DP_STEPS, log_step=1, reference=True)]
+    t0 = time.perf_counter()
+    ranks, job = spawn_ranks(DP_WORLD, DP_BACKENDS[1], {
+        "karel": split, "vizdoom": vz_train, "runs": runs}, "dp_gloo")
+    gloo_s = time.perf_counter() - t0
+    dirs = {run["name"]: run["train_dir"] for run in job["runs"]}
+    res = {"card": CARD, "world": DP_WORLD, "backend": DP_BACKENDS[1],
+           "nccl_world1_bitwise_equal": nccl_equal,
+           "nccl_world1_launches": nccl["launches"], "gloo_seconds": gloo_s}
+    launches = check_dp_ranks(ranks, {"karel": DP_STEPS, "vizdoom": DP_STEPS,
+                                      "karel_half": half,
+                                      "karel_resumed": DP_STEPS - half},
+                              DP_WORLD, DP_BACKENDS[1])
+    res.update({f"{n}_launches_per_rank": v for n, v in launches.items()})
+    res["per_step_launches"] = {n: ranks[0][n]["per_step"]
+                                for n in ("karel", "vizdoom")}
+    a, c = (checkpoint.load(checkpoint.checkpoint_path(dirs[n], DP_STEPS))
+            for n in ("karel", "karel_resumed"))
+    res["resumed_bitwise_equal"] = equal_states(a, c)
+    check(res["resumed_bitwise_equal"], "dp: the world-2 run resumed at step "
+          f"{half} differs from the uninterrupted one")
+    res["karel"] = dp_against_single(
+        "karel", ranks[0]["karel"], dirs["karel"], single_reference(
+            split, "karel", os.path.join(OUT_DIR, "dp_single_karel")))
+    res["vizdoom"] = dp_against_single(
+        "vizdoom", ranks[0]["vizdoom"], dirs["vizdoom"], single_reference(
+            vz_train, "vizdoom", os.path.join(OUT_DIR, "dp_single_vizdoom"),
+            rows=ranks[0]["vizdoom"]["global_rows"]))
+    res["step_s"] = [r["karel"]["step_s"] for r in ranks]
+    print(f"dp step ({CARD}): world {DP_WORLD}, gloo, both ranks on "
+          f"cuda:0, Karel bs {BATCH} (rows a rank {BATCH // DP_WORLD}), "
+          f"median s of rank 0: " + json.dumps(res["step_s"][0]), flush=True)
+    print("dp " + json.dumps(res), flush=True)
+    return res
+
+
+def dp_cards_phase(split, vz_train):
+    """Data parallelism over every card of the machine, one NCCL rank a
+    card (cuda:<rank>), when it has more than one: DP_STEPS Karel and
+    ViZDoom steps, each held against the single process's step from the
+    same parameters on the same global batch, the replicas bitwise equal
+    after every step, exact launches per rank, and the step's time split
+    into compute and the gradients' all-reduce."""
+    world = torch.cuda.device_count()
+    runs = [dict(name="karel", dir="karel", dataset_type="karel",
+                 steps=DP_STEPS, log_step=1, timed=True, reference=True),
+            dict(name="vizdoom", dir="vizdoom", dataset_type="vizdoom",
+                 steps=DP_STEPS, log_step=1, reference=True)]
+    ranks, job = spawn_ranks(world, "nccl", {
+        "karel": split, "vizdoom": vz_train, "runs": runs}, "dp_cards",
+        device="cuda")
+    dirs = {run["name"]: run["train_dir"] for run in job["runs"]}
+    res = {"card": CARD, "world": world, "backend": "nccl",
+           "launches_per_rank": check_dp_ranks(
+               ranks, {"karel": DP_STEPS, "vizdoom": DP_STEPS}, world,
+               "nccl")}
+    for name in ("karel", "vizdoom"):
+        res[name] = dp_against_single(f"{name} over {world} cards",
+                                      ranks[0][name], dirs[name])
+    res["step_s"] = [r["karel"]["step_s"] for r in ranks]
+    print(f"dp cards step ({CARD}): world {world}, nccl, a card a rank, "
+          f"Karel bs {BATCH} (rows a rank {BATCH // world}), median s of "
+          f"rank 0: " + json.dumps(res["step_s"][0]), flush=True)
+    print("dp cards " + json.dumps(res), flush=True)
+    return res
+
+
+def cards_main():
+    """dp_cards_phase alone, on a machine with several cards (the build,
+    the splits, then the phase):
+
+        python3 -c "import chip_smoke; chip_smoke.cards_main()"
+    """
+    global CARD
+    check(torch.cuda.device_count() > 1, "cards_main needs several cards")
+    deterministic_cuda()
+    full_precision_matmuls()
+    CARD = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().replace("\n", "; ")
+    print(CARD, flush=True)
+    build_phase()
+    split = generate_split(SPLIT)
+    vz_train = timed("vizdoom split", vizdoom_split)[0]
+    timed("dp cards", dp_cards_phase, split, vz_train)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2136,6 +2550,9 @@ def main():
     vizdoom = timed("vizdoom", vizdoom_phase, *vizdoom_splits)
     bf16 = timed("bf16", bf16_phase, split, vizdoom_splits)
     data = timed("data", data_phase, split, vizdoom_splits)
+    dp = timed("dp", dp_phase, split, vizdoom_splits, train["checkpoint"])
+    if torch.cuda.device_count() > 1:  # NCCL takes a card a rank
+        timed("dp cards", dp_cards_phase, split, vizdoom_splits[0])
     print(f"phase all: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
 
     def contract(r):  # the contract's names, device times of this run
@@ -2162,7 +2579,11 @@ def main():
             **{f"bf16_{k}": n for k, n in bf16["launches"].items()},
             "karel_streaming_train": data["karel"]["launches"],
             "vizdoom_streaming_train": data["vizdoom"]["launches"],
-            "profiled_step": data["profiled"]["trace_lstm_kernels"]},
+            "profiled_step": data["profiled"]["trace_lstm_kernels"],
+            "dp_nccl_world1_train": dp["nccl_world1_launches"],
+            "dp_gloo_karel_train_per_rank": dp["karel_launches_per_rank"],
+            "dp_gloo_vizdoom_train_per_rank":
+                dp["vizdoom_launches_per_rank"]},
         "shapes": [dict(r, **contract(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

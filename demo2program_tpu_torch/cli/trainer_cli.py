@@ -14,6 +14,15 @@ so a resumed run repeats the uninterrupted one bit for bit. Relaunching a
 finished stage logs "Nothing to do" before loading any data. Reading an
 HDF5 dataset needs h5py; train/trainer.py:Trainer also takes the in-memory
 splits of data/karel_memory.py and data/vizdoom_memory.py.
+
+Data parallelism over N processes, `--batch_size` being the global batch:
+
+    torchrun --nproc_per_node N -m demo2program_tpu_torch.cli.trainer_cli \
+        --device cuda ...
+
+Each rank runs on cuda:LOCAL_RANK over NCCL (one card a rank), or with
+`--device cpu` on the CPU over gloo. Without torchrun's variables the run is
+one process with no process group.
 """
 
 import json
@@ -67,11 +76,17 @@ def main(argv=None):
     from demo2program_tpu_torch.cli.evaler_cli import read_splits
     from demo2program_tpu_torch.train.trainer import Trainer
 
+    import torch.distributed as dist
+
     ds_train, ds_test, _ = read_splits(args, is_train=True)
-    trainer = Trainer(args, ds_train, ds_test, device=args.device)
-    log.warning("dataset: %s, learning_rate: %f", args.dataset_path,
-                args.learning_rate)
-    trainer.train(max_steps=args.max_steps)
+    try:
+        trainer = Trainer(args, ds_train, ds_test, device=args.device)
+        log.warning("dataset: %s, learning_rate: %f", args.dataset_path,
+                    args.learning_rate)
+        trainer.train(max_steps=args.max_steps)
+    finally:
+        if dist.is_initialized():  # the group the trainer's mesh formed
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

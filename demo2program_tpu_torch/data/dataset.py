@@ -115,7 +115,12 @@ class _CompactStore:
         arrs["ids"] = np.array(ids)
         arrs["h5_fingerprint"] = self._fp
         try:
-            np.savez(path, **arrs)
+            # through a file of this process's own: the ranks of a
+            # data-parallel run may build the sidecar at once
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrs)
+            os.replace(tmp, path)
             log.info("compact cache built in %.1f s (%d items)",
                      time.time() - t0, len(ids))
         except OSError:

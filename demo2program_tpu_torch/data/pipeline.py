@@ -20,6 +20,12 @@ split's order every epoch and the ragged tail is dropped; with
 shuffle=False it walks one epoch in order. `fast_forward(n)` skips n
 batches without loading them (exact resume); batches already queued count
 as drawn. `close()` shuts the worker threads down.
+
+Under a data mesh (parallel/mesh.py) every rank walks the global id stream
+of `batch_size` ids a batch and makes and ships only its own rows of each
+batch, [r * bs / N, (r + 1) * bs / N), as the JAX pipeline's sharded
+device_put leaves each chip its rows (demo2program_tpu/data/pipeline.py:
+108-119).
 """
 
 import threading
@@ -29,6 +35,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from demo2program_tpu_torch.parallel.mesh import shard_rows
 from demo2program_tpu_torch.train.step import NON_TENSOR_KEYS
 
 
@@ -40,12 +47,13 @@ class BatchPipeline:
     shuffle=True -> epoch-reshuffled infinite stream (training);
     shuffle=False -> one epoch in order (eval), dropping the ragged tail
     like the reference's fixed `max_steps = len(ids) // batch_size`
-    (`evaler.py:448-449`).
+    (`evaler.py:448-449`). `batch_size` is the global batch's; with a data
+    `mesh` a batch holds the rank's rows of it.
     """
 
-    def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 num_threads=4, prefetch=4, device="cpu", drop_keys=(),
-                 compact=False):
+    def __init__(self, dataset, batch_size, device, shuffle=True, seed=0,
+                 num_threads=4, prefetch=4, drop_keys=(), compact=False,
+                 mesh=None):
         self.dataset = dataset
         self.batch_size = batch_size
         if batch_size > len(dataset.ids):
@@ -56,6 +64,7 @@ class BatchPipeline:
         self.rng = np.random.RandomState(seed)
         self.device = torch.device(device)
         self.drop_keys = frozenset(drop_keys)
+        self.mesh = mesh
         self._compact = compact
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -95,6 +104,7 @@ class BatchPipeline:
                     break
 
     def _load_batch(self, id_batch):
+        id_batch = shard_rows(np.asarray(id_batch), self.mesh).tolist()
         if self._compact:
             host = self.dataset.get_batch_compact(id_batch)
         else:

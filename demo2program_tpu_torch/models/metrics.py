@@ -9,10 +9,19 @@ terms in bf16 and the products with the f32 labels in f32, as jnp promotes.
 Every function here also takes extra LEADING dims in front of (bs, L, V):
 the masks then reduce over (bs, L) separately per leading index, which is
 how the per-demo terms (the JAX package's vmap over k) are computed.
+
+Under data parallelism (`mesh`, parallel/mesh.py) a rank holds bs rows of
+the global batch: each mean divides the rank's sum by the GLOBAL
+denominator (mask sums summed across the ranks without a gradient, row
+counts times the mesh size), so the returned scalars are partial sums whose
+sum over the ranks is the value over the global batch, as the JAX step
+computes it over its sharded batch.
 """
 
 import torch
 import torch.nn.functional as F
+
+from demo2program_tpu_torch.parallel.mesh import global_sum, world_of
 
 
 def _length_mask(lengths, max_len):
@@ -20,8 +29,14 @@ def _length_mask(lengths, max_len):
     return (ar < lengths[..., None]).float()
 
 
+def batch_mean(x, mesh=None):
+    """Mean over the last (batch) axis of the global batch: a partial sum
+    under a mesh."""
+    return x.sum(-1) / (x.shape[-1] * world_of(mesh))
+
+
 def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program",
-                     pred_tokens=None):
+                     pred_tokens=None, mesh=None):
     """Returns dict(loss, token_acc, seq_acc, is_same_seq, pred_tokens).
 
     logits/gt_onehot: (..., bs, L, V); gt_len/pred_len: (..., bs) int.
@@ -41,7 +56,8 @@ def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program",
     else:
         ce = (-gt_onehot * F.logsigmoid(logits)
               - (1.0 - gt_onehot) * F.logsigmoid(-logits)).mean(-1)
-    loss = (ce * gt_mask).sum((-2, -1)) / gt_mask.sum((-2, -1)).clamp(min=1.0)
+    loss = (ce * gt_mask).sum((-2, -1)) / global_sum(
+        gt_mask.sum((-2, -1)), mesh).clamp(min=1.0)
 
     out = {"loss": loss}
     if seq_type in ("program", "action"):
@@ -49,11 +65,11 @@ def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program",
         pred_am = (torch.argmax(logits, dim=-1) if pred_tokens is None
                    else pred_tokens.long())
         correct = (gt_am == pred_am).float()
-        out["token_acc"] = (correct * min_mask).sum((-2, -1)) / max_mask.sum(
-            (-2, -1)).clamp(min=1.0)
+        out["token_acc"] = (correct * min_mask).sum((-2, -1)) / global_sum(
+            max_mask.sum((-2, -1)), mesh).clamp(min=1.0)
         seq_eq = ((gt_am == pred_am) | (gt_mask < 0.5)).all(dim=-1)
         is_same_seq = (seq_eq & (gt_len == pred_len)).float()
         out["is_same_seq"] = is_same_seq
-        out["seq_acc"] = is_same_seq.mean(-1)
+        out["seq_acc"] = batch_mean(is_same_seq, mesh)
         out["pred_tokens"] = pred_am.int()
     return out

@@ -10,56 +10,61 @@ Port of demo2program_tpu/models/objective.py (`model_full.py:918-1095`):
 
 each per-demo term normalised by its own mask sum before the mean over k.
 Host-side metrics (syntax, canonical program, execution accuracy) live in
-eval/scorer.py.
+eval/scorer.py. With a data `mesh` every batch reduction is over the global
+batch and every scalar is the rank's partial sum (models/metrics.py): the
+local losses sum over the ranks to the single-process loss.
 """
 
 import torch
 
-from demo2program_tpu_torch.models.metrics import sequence_metrics
+from demo2program_tpu_torch.models.metrics import batch_mean, sequence_metrics
 
 
-def _program_stat(logits, batch, pred_tokens=None):
+def _program_stat(logits, batch, pred_tokens=None, mesh=None):
     gt_onehot = batch["program"].transpose(1, 2).float()  # -> (bs, L, V)
     plen = batch["program_len"][:, 0].long()
     return sequence_metrics(logits, gt_onehot, plen, plen, "program",
-                            pred_tokens=pred_tokens)
+                            pred_tokens=pred_tokens, mesh=mesh)
 
 
-def _per_k_stats(logits, gt_onehot, gt_len, seq_type, pred_len=None):
+def _per_k_stats(logits, gt_onehot, gt_len, seq_type, pred_len=None,
+                 mesh=None):
     """Per-demo sequence metrics with a leading k axis, like the JAX
     package's vmap over k. logits/gt: (bs, k, T, V); lengths: (bs, k)."""
     gt_len = gt_len.transpose(0, 1)
     pred_len = gt_len if pred_len is None else pred_len.transpose(0, 1)
     return sequence_metrics(logits.transpose(0, 1),
                             gt_onehot.transpose(0, 1), gt_len, pred_len,
-                            seq_type)
+                            seq_type, mesh=mesh)
 
 
-def _all_k_match(stats):
+def _all_k_match(stats, mesh=None):
     """`seq_all_acc`: the share of tasks whose sequences ALL match
     (`model_induction.py:816-819`); stats have a leading k axis."""
-    return (stats["is_same_seq"] > 0.5).all(dim=0).float().mean()
+    return batch_mean((stats["is_same_seq"] > 0.5).all(dim=0).float(), mesh)
 
 
-def compute_loss(cfg, outputs, batch, model_name):
+def compute_loss(cfg, outputs, batch, model_name, mesh=None):
     """Training objective of `model_name` -> (loss, report) with the
     reference's report_loss/report_accuracy scalar names
-    (`model_full.py:1099-1132`)."""
+    (`model_full.py:1099-1132`); with `mesh`, the rank's partial sums of
+    the global batch's values."""
     report = {}
     if model_name == "induction_baseline":
         act = _per_k_stats(outputs["pred_action_logits"], batch["test_a_h"],
-                           batch["test_demo_len"].long(), "action")
+                           batch["test_demo_len"].long(), "action",
+                           mesh=mesh)
         loss = act["loss"].mean()
         report["avg_action_loss"] = loss
         report["avg_action_token_acc"] = act["token_acc"].mean()
         report["avg_action_seq_acc"] = act["seq_acc"].mean()
-        report["avg_action_seq_all_acc"] = _all_k_match(act)
+        report["avg_action_seq_all_acc"] = _all_k_match(act, mesh)
         report["loss"] = loss
         return loss, report
 
     # scheduled sampling reports its sampled ids, not the logits' argmax
     prog = _program_stat(outputs["pred_program_logits"], batch,
-                         outputs.get("pred_program_tokens"))
+                         outputs.get("pred_program_tokens"), mesh)
     loss = prog["loss"]
     report["program_loss"] = prog["loss"]
     report["program_token_acc"] = prog["token_acc"]
@@ -68,13 +73,13 @@ def compute_loss(cfg, outputs, batch, model_name):
     if model_name == "full":
         demo_len = batch["demo_len"].long()  # action_len alias
         act = _per_k_stats(outputs["pred_action_logits"], batch["a_h"],
-                           demo_len, "action")
+                           demo_len, "action", mesh=mesh)
         report["avg_action_loss"] = act["loss"].mean()
         report["avg_action_token_acc"] = act["token_acc"].mean()
         report["avg_action_seq_acc"] = act["seq_acc"].mean()
 
         per = _per_k_stats(outputs["pred_per_logits"], batch["per"],
-                           demo_len, "per")
+                           demo_len, "per", mesh=mesh)
         report["avg_per_loss"] = per["loss"].mean()
         loss = loss + report["avg_action_loss"] + report["avg_per_loss"]
 
@@ -82,7 +87,7 @@ def compute_loss(cfg, outputs, batch, model_name):
     return loss, report
 
 
-def program_eval_tensors(cfg, outputs, batch, image_tensors=False):
+def program_eval_tensors(cfg, outputs, batch, image_tensors=False, mesh=None):
     """Per-example tensors for the host/VM scorers, for the teacher-forced
     and the decoded programs (and the beam set of beam decoding) (the fetch
     set of `evaler.py:258-280`). With `image_tensors`, also the trainer's
@@ -92,10 +97,11 @@ def program_eval_tensors(cfg, outputs, batch, image_tensors=False):
     objective.py:128-137, which the JAX function always returns; those two
     are float32 whatever the compute dtype (JAX keeps the logits' dtype),
     so they cross to numpy. Empty for the induction baseline, which decodes
-    no program."""
+    no program. With `mesh` the scalars are the rank's partial sums; the
+    per-example tensors are the rank's rows."""
     if "pred_program_logits" not in outputs:
         return {}
-    prog = _program_stat(outputs["pred_program_logits"], batch)
+    prog = _program_stat(outputs["pred_program_logits"], batch, mesh=mesh)
     plen = batch["program_len"][:, 0].long()
     res = {
         "pred_tokens": prog["pred_tokens"],
@@ -107,7 +113,8 @@ def program_eval_tensors(cfg, outputs, batch, image_tensors=False):
     }
     g = sequence_metrics(outputs["greedy_program_logits"],
                          batch["program"].transpose(1, 2), plen,
-                         outputs["greedy_program_len"], "program")
+                         outputs["greedy_program_len"], "program",
+                         mesh=mesh)
     res.update({
         "greedy_tokens": outputs["greedy_program_tokens"],
         "greedy_len": outputs["greedy_program_len"],
@@ -127,7 +134,7 @@ def program_eval_tensors(cfg, outputs, batch, image_tensors=False):
     return res
 
 
-def greedy_action_report(cfg, outputs, batch, model_name):
+def greedy_action_report(cfg, outputs, batch, model_name, mesh=None):
     """greedy_avg_action_* scalars (`model_full.py:1040-1059`); the
     induction baseline is scored against the TEST demos and adds
     seq_all_acc (`model_induction.py:822-846`). Empty for the models
@@ -139,12 +146,13 @@ def greedy_action_report(cfg, outputs, batch, model_name):
                 else (batch["a_h"], batch["demo_len"]))
     stats = _per_k_stats(outputs["greedy_action_logits"], gt, lens.long(),
                          "action",
-                         pred_len=outputs["greedy_action_len"].long())
+                         pred_len=outputs["greedy_action_len"].long(),
+                         mesh=mesh)
     report = {
         "greedy_avg_action_loss": stats["loss"].mean(),
         "greedy_avg_action_token_acc": stats["token_acc"].mean(),
         "greedy_avg_action_seq_acc": stats["seq_acc"].mean(),
     }
     if induction:
-        report["greedy_avg_action_seq_all_acc"] = _all_k_match(stats)
+        report["greedy_avg_action_seq_all_acc"] = _all_k_match(stats, mesh)
     return report

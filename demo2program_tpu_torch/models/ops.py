@@ -33,6 +33,7 @@ lecun-normal (truncated) Dense/Conv kernels, zero biases, unit BN scale,
 U[0, 0.02) embeddings and glorot-uniform LSTM kernels.
 """
 
+import contextlib
 import math
 
 import torch
@@ -40,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from demo2program_tpu_torch.ops.fused_lstm import FusedLSTMCell
+from demo2program_tpu_torch.parallel.mesh import all_reduce_sum
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch statistic
@@ -89,18 +91,28 @@ def _normalize(bn, x, mean, var):
     return y.to(promoted(x, bn.weight, bn.bias))
 
 
-def batch_norm_train(bn, x):
+def batch_norm_train(bn, x, mesh=None):
     """flax `BatchNorm(use_running_average=False)` on the channels of dim 1,
     with the parameters and buffers of the torch module `bn`: normalise with
     the batch mean and the BIASED batch variance, computed as flax does
     (in f32: E[x^2] - E[x]^2, clipped at 0), and move the running statistics
     by running = 0.9 * running + 0.1 * batch, `running` as seen in the
     parameters' dtype (the module docstring). torch's own training mode
-    moves running_var by the unbiased variance (a factor n / (n - 1))."""
+    moves running_var by the unbiased variance (a factor n / (n - 1)).
+
+    The statistics are those of the global batch: sum x, sum x*x and the
+    row count are summed across the ranks of `mesh` by a differentiable
+    all-reduce (parallel/mesh.py), as the JAX step's BatchNorm sees every
+    chip's rows; every rank moves its running statistics identically.
+    Without a process group the sums are the rank's own."""
     dims = [0] + list(range(2, x.dim()))
     xf = x.float()
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    rows = xf.new_full((1,), xf.numel() // xf.shape[1])
+    sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                     rows]), mesh)
+    count = sums[-1]
+    mean, sq = (sums[:-1] / count).chunk(2)
+    var = torch.clamp(sq - mean * mean, min=0.0)
     with torch.no_grad():
         for running, stat in ((bn.running_mean, mean), (bn.running_var, var)):
             seen = running.to(bn.weight.dtype).float()
@@ -128,13 +140,32 @@ class BNAct(nn.Module):
         self.activation = activation
         bn_cls = nn.BatchNorm2d if spatial else nn.BatchNorm1d
         self.bn = bn_cls(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        self.mesh = None  # the data mesh of a train forward (batch_norm_mesh)
 
     def forward(self, x):
         if self.activation == "lrelu":
             x = lrelu(x)
         if self.training:
-            return batch_norm_train(self.bn, x)
+            return batch_norm_train(self.bn, x, self.mesh)
         return batch_norm_eval(self.bn, x)
+
+
+@contextlib.contextmanager
+def batch_norm_mesh(model, mesh):
+    """Inside the block, the train-mode BatchNorms of `model` take their
+    statistics over `mesh`'s global batch (the backward, which runs later,
+    keeps the group it was given). Nothing to do at world 1."""
+    if mesh is None or not mesh.distributed:
+        yield
+        return
+    layers = [m for m in model.modules() if isinstance(m, BNAct)]
+    for m in layers:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.mesh = None
 
 
 def same_padding(size, kernel, stride):

@@ -13,10 +13,17 @@ batches. The order is not the JAX package's (jax.random.permutation has no
 counterpart here), only its rule. Each epoch's permutation is copied to the
 device once, so a step makes no host-to-device copy.
 
+Under a data mesh (parallel/mesh.py) the Karel split is replicated, as the
+JAX cache's is (demo2program_tpu/train/device_cache.py:78-80): every rank
+draws the global batch's rows of step s and gathers its own slice of them,
+the counterpart of the JAX chunked step's batch-sharding constraint
+(demo2program_tpu/train/step.py:184-187).
+
 DoomDeviceCache does the same for a ViZDoom split, whose frames cannot be
-replayed on the device: see its docstring.
+replayed on the device, and shards it over the mesh: see its docstring.
 """
 
+import contextlib
 import json
 import os
 import os.path as osp
@@ -24,6 +31,7 @@ import os.path as osp
 import numpy as np
 import torch
 
+from demo2program_tpu_torch.parallel.mesh import shard_rows
 from demo2program_tpu_torch.utils import log
 from demo2program_tpu_torch.train.step import to_device
 
@@ -33,9 +41,12 @@ class KarelDeviceCache:
     `get_batch_compact(ids)`: an HDF5 KarelDataset or an
     InMemoryKarelSplit) on `device`. The unseen-demo `test_*` arrays are
     kept only with `include_test`: the induction baseline trains on the
-    test demos' actions, the other models do not read them."""
+    test demos' actions, the other models do not read them. `batch_size` is
+    the global batch's; with a data `mesh`, batch(s) is the rank's rows of
+    it."""
 
-    def __init__(self, dataset, device, batch_size, seed, include_test=False):
+    def __init__(self, dataset, device, batch_size, seed, include_test=False,
+                 mesh=None):
         host = dataset.get_batch_compact(list(dataset.ids))
         host = {k: v for k, v in host.items()
                 if include_test or not k.startswith("test_")}
@@ -46,9 +57,10 @@ class KarelDeviceCache:
                 f"batch_size {batch_size} exceeds split size {self.n}")
         self.batch_size = batch_size
         self.seed = seed
+        self.mesh = mesh
         self.device = torch.device(device)
         self.data = to_device(host, self.device)
-        log.info("karel device cache: %.1f MB (%d items) on %s",
+        log.info("karel device cache: %.1f MB (%d items, replicated) on %s",
                  sum(t.nbytes for t in self.data.values()) / 1e6, self.n,
                  self.device)
         self._epoch, self._perm = None, None
@@ -58,7 +70,8 @@ class KarelDeviceCache:
         return np.random.default_rng((self.seed, epoch)).permutation(self.n)
 
     def indices(self, step):
-        """Rows of step `step` (int64 tensor on the device)."""
+        """Rows of the global batch of step `step` (int64 tensor on the
+        device)."""
         epoch, s_in_e = divmod(step, self.steps_per_epoch)
         if epoch != self._epoch:
             self._epoch = epoch
@@ -68,8 +81,9 @@ class KarelDeviceCache:
         return self._perm[s_in_e * bs:(s_in_e + 1) * bs]
 
     def batch(self, step):
-        """The compact batch of step `step`, gathered on the device."""
-        idx = self.indices(step)
+        """The compact batch of step `step` (the rank's rows of it),
+        gathered on the device."""
+        idx = shard_rows(self.indices(step), self.mesh)
         return {k: v.index_select(0, idx) for k, v in self.data.items()}
 
 
@@ -87,6 +101,17 @@ def estimate_cache_bytes(dataset, k=None):
     return len(dataset.ids) * k * dataset.max_demo_len * (h * w * c + 32)
 
 
+@contextlib.contextmanager
+def _replaced(path, mode="wb"):
+    """A file written through a temporary name of this process's own and
+    then renamed to `path`: the ranks of a data-parallel run may build the
+    sidecar at once, and each file appears whole."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, mode) as f:
+        yield f
+    os.replace(tmp, path)
+
+
 def _h5_fingerprint(ds):
     st = os.stat(osp.join(ds.dataset_path, "data.hdf5"))
     return [st.st_size, st.st_mtime_ns]
@@ -96,21 +121,32 @@ class DoomDeviceCache:
     """The ViZDoom train split on `device`, batches gathered there.
 
     Port of DoomDeviceCache (demo2program_tpu/train/device_cache.py:
-    96-358), one device. ViZDoom demos are engine video that cannot be
-    replayed on the device, so the whole split's frames (uint8), percepts
-    and raw action rows are copied to the device once and each step gathers
-    its rows by index; `ops/reconstruct.expand_doom_batch` rebuilds the
-    one-hots. A split that does not fit the device's free memory raises:
-    there is no streaming path to fall back to.
+    96-358). ViZDoom demos are engine video that cannot be replayed on the
+    device, so the split's frames (uint8), percepts and raw action rows are
+    copied to the device once and each step gathers its rows by index;
+    `ops/reconstruct.expand_doom_batch` rebuilds the one-hots. A split that
+    does not fit the device's free memory raises: there is no streaming
+    path to fall back to here (the trainer streams instead when its
+    estimate does not fit).
 
-    Batches follow the JAX cache's index stream: numpy RandomState(seed),
-    a fresh permutation whenever the next batch would run past the split,
-    consecutive slices of it. The batch of step s is the stream's s-th draw
-    (`batch(s)`; `fast_forward(n)` skips n draws on the host), so a resumed
-    run, or a later stage started at step s, replays what an uninterrupted
-    run from step 0 would draw. `set_batch_size` re-aims the cache at
-    another batch size (the bs 32 -> 8 second stage) without copying the
-    split again; the stream restarts from the seed.
+    One device (no `mesh`, or a mesh of one): batches follow the JAX
+    cache's index stream, numpy RandomState(seed), a fresh permutation
+    whenever the next batch would run past the split, consecutive slices of
+    it. Over a data mesh of N ranks the split is SHARDED as JAX's is
+    (:135-168, 287-358): the item axis is padded to a multiple of N with
+    copies of items 0, 1, ... (`_per_shard` items a shard, `_shard_counts`
+    real ones), each rank holds only its shard on its device, and every
+    rank keeps the one RandomState(seed) and draws for ALL shards exactly as
+    `_draw_sharded` does (a permutation per shard over its real items; a
+    shard with none samples its pad rows), then gathers its own draw: the
+    global ids of every step are JAX's, pad rows included.
+
+    The batch of step s is the stream's s-th draw (`batch(s)`;
+    `fast_forward(n)` skips n draws on the host), so a resumed run, or a
+    later stage started at step s, replays what an uninterrupted run from
+    step 0 would draw. `set_batch_size` re-aims the cache at another global
+    batch size (the bs 32 -> 8 second stage) without copying the split
+    again; the stream restarts from the seed.
 
     A split read from HDF5 keeps its packed host arrays in the
     `device_cache_v1/` sidecar beside data.hdf5 (per-key .npy files and
@@ -124,16 +160,29 @@ class DoomDeviceCache:
     _K_SLICED = ("dc_s_h", "dc_per", "c_a_raw", "demo_len")
 
     def __init__(self, dataset, device, batch_size, seed,
-                 include_test_actions=False):
+                 include_test_actions=False, mesh=None):
         self.device = torch.device(device)
         self.seed = seed
-        self.batch_size = batch_size
         self.ids = np.asarray(dataset.ids)
-        self.n = len(self.ids)
-        if batch_size > self.n:
-            raise ValueError(
-                f"batch_size {batch_size} exceeds split size {self.n}")
+        self.n = n = len(self.ids)
+        self.n_shards = 1 if mesh is None else mesh.world
+        self.rank = 0 if mesh is None else mesh.rank
+        self._check_batch_size(batch_size)
+        self.batch_size = batch_size
+        pad = (-n) % self.n_shards
+        if pad > n:
+            raise ValueError(f"a split of {n} items cannot be padded to "
+                             f"{self.n_shards} shards")
+        self._per_shard = (n + pad) // self.n_shards
+        self._shard_counts = [
+            min(self._per_shard, max(0, n - s * self._per_shard))
+            for s in range(self.n_shards)]
         host = self._load_or_build(dataset, include_test_actions)
+        if self.n_shards > 1:  # this rank's shard; pad rows copy items 0..
+            rows = np.arange(self.rank * self._per_shard,
+                             (self.rank + 1) * self._per_shard)
+            rows = np.where(rows < n, rows, rows - n)
+            host = {k: v[rows] for k, v in host.items()}
         nbytes = sum(v.nbytes for v in host.values())
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
@@ -142,10 +191,19 @@ class DoomDeviceCache:
                     f"the ViZDoom train split needs {nbytes} bytes on "
                     f"{self.device}, {free} are free; use fewer programs or "
                     f"a smaller --num_k")
-        log.info("doom device cache: %.2f GB (%d items) on %s", nbytes / 1e9,
-                 self.n, self.device)
+        log.info("doom device cache: %.2f GB (%d items%s) on %s",
+                 nbytes / 1e9, n, "" if self.n_shards == 1 else
+                 f", shard {self.rank} of {self.n_shards}", self.device)
         self.data = to_device(host, self.device)
         self._reset()
+
+    def _check_batch_size(self, batch_size):
+        if batch_size > self.n:
+            raise ValueError(
+                f"batch_size {batch_size} exceeds split size {self.n}")
+        if batch_size % self.n_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{self.n_shards} mesh devices")
 
     def _load_or_build(self, ds, include_test_actions):
         if ds.dataset_path is None:
@@ -190,13 +248,15 @@ class DoomDeviceCache:
         try:
             os.makedirs(cache_dir, exist_ok=True)
             for key, v in arrays.items():
-                np.save(osp.join(cache_dir, f"{split}_{key}.npy"), v)
+                with _replaced(osp.join(cache_dir, f"{split}_{key}.npy")) \
+                        as f:
+                    np.save(f, v)
             meta = {}
             if osp.exists(meta_path):
                 with open(meta_path) as f:
                     meta = json.load(f)
             meta[split] = {"n": len(ds.ids), "fp": fp, "k": build_k}
-            with open(meta_path, "w") as f:
+            with _replaced(meta_path, "w") as f:
                 json.dump(meta, f)
         except OSError:
             log.warn("device cache sidecar not writable; in memory only")
@@ -249,40 +309,73 @@ class DoomDeviceCache:
     def _reset(self):
         self.rng = np.random.RandomState(self.seed)
         self._order, self._pos, self._next = None, 0, 0
+        self._orders = [None] * self.n_shards
+        self._shard_pos = [0] * self.n_shards
 
     def set_batch_size(self, batch_size):
-        """Draw batches of `batch_size` from now on (the stream restarts
-        from the seed); the split stays where it is."""
-        if batch_size > self.n:
-            raise ValueError(
-                f"batch_size {batch_size} exceeds split size {self.n}")
+        """Draw global batches of `batch_size` from now on (the stream
+        restarts from the seed); the split stays where it is."""
+        self._check_batch_size(batch_size)
         if batch_size != self.batch_size:
             self.batch_size = batch_size
             self._reset()
 
     def _draw(self):
+        """The stream's next draw -> (local rows, global rows), one array
+        of each per shard."""
+        self._next += 1
+        if self.n_shards > 1:
+            return self._draw_sharded()
         if self._order is None or self._pos + self.batch_size > self.n:
             self._order = self.rng.permutation(self.n)
             self._pos = 0
         idx = self._order[self._pos:self._pos + self.batch_size]
         self._pos += self.batch_size
-        self._next += 1
-        return idx
+        return [idx], [idx]
+
+    def _draw_sharded(self):
+        """demo2program_tpu/train/device_cache.py:337-358, draw for draw."""
+        bs_local = self.batch_size // self.n_shards
+        local, global_ = [], []
+        for s in range(self.n_shards):
+            cnt = self._shard_counts[s]
+            if cnt == 0:  # a tiny split: the shard samples its pad rows
+                li = self.rng.randint(0, self._per_shard, size=bs_local)
+            else:
+                if (self._orders[s] is None
+                        or self._shard_pos[s] + bs_local > cnt):
+                    self._orders[s] = self.rng.permutation(cnt)
+                    self._shard_pos[s] = 0
+                li = self._orders[s][
+                    self._shard_pos[s]:self._shard_pos[s] + bs_local]
+                if len(li) < bs_local:  # shard smaller than bs_local
+                    li = np.resize(li, bs_local)
+                self._shard_pos[s] += bs_local
+            local.append(li)
+            r = s * self._per_shard + li  # pad rows copy items 0..pad-1
+            global_.append(np.where(r < self.n, r, r - self.n))
+        return local, global_
 
     def fast_forward(self, n):
         """Skip the next `n` draws of the stream (host only)."""
         for _ in range(n):
             self._draw()
 
-    def indices(self, step):
-        """Rows of step `step` (host int64 array): the stream's step-th
-        draw."""
+    def draws(self, step):
+        """The stream's step-th draw -> (local rows, global rows) of every
+        shard."""
         if step < self._next:
             self._reset()
         self.fast_forward(step - self._next)
         return self._draw()
 
+    def indices(self, step):
+        """This rank's rows of its shard in step `step` (host int64
+        array)."""
+        return self.draws(step)[0][self.rank]
+
     def batch(self, step):
-        """The batch of step `step`, gathered on the device."""
+        """The rank's rows of the batch of step `step`, gathered on the
+        device."""
         idx = torch.as_tensor(self.indices(step), device=self.device)
         return {k: v.index_select(0, idx) for k, v in self.data.items()}

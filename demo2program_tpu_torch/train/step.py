@@ -29,6 +29,16 @@ ops/fused_lstm.py), clip, Adam. Nothing in it copies to the host: the
 report holds 0-d tensors on the model's device. Scheduled sampling's draws
 in step s come from a generator seeded with a pure function of (seed, s),
 so a resumed run draws what the uninterrupted one drew.
+
+Data parallelism (`mesh`, parallel/mesh.py): a rank's batch is its rows of
+the global batch, and the step computes what the single-process step
+computes on the global batch, as the JAX step does over its data mesh:
+BatchNorm and the objective reduce over the global batch, the gradients
+are summed across the ranks in one flat bucket after backward (so
+grad_norm, the clip and Adam are identical on every rank), the report is
+summed across the ranks (every rank reports the global values), and
+scheduled sampling draws the global batch's noise from step_generator and
+keeps the rank's rows.
 """
 
 import os
@@ -39,7 +49,11 @@ from torch.func import functional_call
 
 from demo2program_tpu_torch.models import objective
 from demo2program_tpu_torch.models.common import COMPUTE_DTYPES
+from demo2program_tpu_torch.models.decoder import gumbel, scheduled_noise
+from demo2program_tpu_torch.models.ops import batch_norm_mesh
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
+from demo2program_tpu_torch.parallel.mesh import (
+    all_reduce_gradients, global_report, shard_rows, world_of)
 
 NON_TENSOR_KEYS = ("id",)
 CLIP_NORM = 20.0
@@ -215,45 +229,56 @@ def compute_call(model, cfg, batch, **kwargs):
                            kwargs)
 
 
-def forward_loss(model, cfg, batch, model_name, **kwargs):
+def forward_loss(model, cfg, batch, model_name, mesh=None, **kwargs):
     """Train-mode forward of a compact or expanded batch (dict of tensors on
-    the model's device) -> (loss, report) of `model_name`'s objective.
-    `kwargs` go to the model (scheduled sampling's sampling_prob, noise,
-    generator)."""
+    the model's device) -> (loss, report) of `model_name`'s objective, over
+    the global batch of `mesh` (the rank's partial sums). `kwargs` go to
+    the model (scheduled sampling's sampling_prob and noise)."""
     model.train()
     batch = expand_batch(strip_non_tensor(batch), cfg)
-    out = compute_call(model, cfg, batch, include_greedy=False, **kwargs)
-    return objective.compute_loss(cfg, out, batch, model_name)
+    with batch_norm_mesh(model, mesh):
+        out = compute_call(model, cfg, batch, include_greedy=False, **kwargs)
+    return objective.compute_loss(cfg, out, batch, model_name, mesh)
 
 
-def make_train_step(state, cfg, model_name, seed=0):
-    """-> train_step(batch, noise=None) -> report: one update of `state`.
-    The report has the objective's scalars and `grad_norm`, the global norm
-    of the unclipped gradients (demo2program_tpu/train/step.py:129). With
+def make_train_step(state, cfg, model_name, seed=0, mesh=None):
+    """-> train_step(batch, noise=None) -> report: one update of `state`
+    on the rank's rows of `mesh`'s global batch (mesh None: the batch is
+    the whole batch). The report has the objective's scalars and
+    `grad_norm`, the global norm of the unclipped gradients
+    (demo2program_tpu/train/step.py:129), all global values. With
     cfg.scheduled_sampling the program decoder samples at
     sampling_prob(cfg, state.step), drawing `noise` (the decoder's
-    (Gumbel, uniform) pair) or, without it, from step_generator(seed,
-    state.step)."""
+    (Gumbel, uniform) pair) or, without it, the global batch's draws from
+    step_generator(seed, state.step)."""
 
     def train_step(batch, noise=None):
         kwargs = {}
         if cfg.scheduled_sampling:
-            device = next(state.model.parameters()).device
+            if noise is None:  # the global batch's draws, sharded
+                device = next(state.model.parameters()).device
+                bs, L = batch["program_tokens"].shape
+                noise = tuple(shard_rows(t, mesh, dim=1) for t in (
+                    scheduled_noise(L, bs * world_of(mesh),
+                                    cfg.dim_program_token, step_generator(
+                                        seed, state.step, device), device)))
             kwargs = dict(sampling_prob=sampling_prob(cfg, state.step),
-                          noise=noise, generator=step_generator(
-                              seed, state.step, device))
+                          noise=noise)
         loss, report = forward_loss(state.model, cfg, batch, model_name,
-                                    **kwargs)
+                                    mesh, **kwargs)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_gradients(state.params, mesh)
+        report = global_report({k: v.detach() for k, v in report.items()},
+                               mesh)
         report["grad_norm"] = state.apply_gradients()
-        return {k: v.detach() for k, v in report.items()}
+        return report
 
     return train_step
 
 
 def make_eval_step(model, cfg, model_name, decode_mode="greedy",
-                   decode_seed=123, image_tensors=False):
+                   decode_seed=123, image_tensors=False, mesh=None):
     """Eval forward: loss/acc reports + program tensors for host/VM scoring
     (none for the induction baseline), with running batch-norm statistics.
     `decode_mode` is greedy | beam | syntax_greedy | syntax_sample; the
@@ -262,7 +287,11 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
     (demo2program_tpu/train/step.py:198-233). `image_tensors` adds the
     trainer's image summaries' probabilities to the evals
     (objective.program_eval_tensors). Returns eval_step(batch) ->
-    (report, evals), batch being a dict of tensors on the model's device."""
+    (report, evals), batch being a dict of tensors on the model's device:
+    with `mesh`, the rank's rows of the global batch, and then the report
+    and the evals' scalars are the global batch's (summed across the
+    ranks), the per-example evals the rank's rows, and syntax_sample's
+    draws the global batch's, sharded."""
     kwargs = {} if decode_mode == "greedy" else {"decode_mode": decode_mode}
 
     @torch.no_grad()
@@ -271,14 +300,27 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
         batch = expand_batch(strip_non_tensor(batch), cfg)
         if decode_mode == "syntax_sample":
             device = next(model.parameters()).device
-            kwargs["generator"] = torch.Generator(
-                device=device).manual_seed(decode_seed)
+            generator = torch.Generator(device=device).manual_seed(
+                decode_seed)
+            if world_of(mesh) > 1:  # the global batch's draws, sharded
+                rows = batch["program_tokens"].shape[0] * mesh.world
+                kwargs["decode_noise"] = shard_rows(gumbel(
+                    (cfg.max_program_len, rows, cfg.dim_program_token),
+                    generator, device), mesh, dim=1)
+            else:
+                kwargs["generator"] = generator
         out = compute_call(model, cfg, batch, **kwargs)
-        _, report = objective.compute_loss(cfg, out, batch, model_name)
+        _, report = objective.compute_loss(cfg, out, batch, model_name,
+                                           mesh)
         report.update(objective.greedy_action_report(cfg, out, batch,
-                                                     model_name))
+                                                     model_name, mesh))
         evals = objective.program_eval_tensors(cfg, out, batch,
-                                               image_tensors)
+                                               image_tensors, mesh)
+        scalars = {("report", k): v for k, v in report.items()}
+        scalars.update({("evals", k): v for k, v in evals.items()
+                        if v.dim() == 0})
+        for (kind, k), v in global_report(scalars, mesh).items():
+            (report if kind == "report" else evals)[k] = v
         return report, evals
 
     return eval_step

@@ -58,6 +58,22 @@ step s are a pure function of (seed, s) (train/step.py:step_generator), so
 exact resume still holds. ViZDoom samples test batches in the full wire
 format, as the JAX trainer does; its bs 32 -> 8 second stage is a new run
 with `--checkpoint` and `--batch_size 8`.
+
+Data parallelism: under torchrun (or a caller's own process group) the
+trainer builds a data mesh at init (parallel/mesh.py) over the largest
+process count that divides `--batch_size`, the JAX trainer's rule and
+warning (demo2program_tpu/train/trainer.py:121-131); a process left outside
+that mesh takes no step. `--batch_size` is the global batch: every rank
+walks the global batch stream and takes its rows (the Karel cache is
+replicated, the ViZDoom cache sharded, the streamed pipeline and the test
+stream make only the rank's rows), and each step computes the global
+batch's update (train/step.py), so the replicas stay equal. Rank 0 alone
+writes the train dir (checkpoints, resume.json, metrics.jsonl, samples.txt,
+PNGs); the others wait at a barrier after each checkpoint. Every rank
+resumes from the same checkpoint. The test-sample eval reports global
+values, and the programs its samples need are gathered to rank 0. With
+`--profile_steps` each rank writes its own trace (`..._rank<r>.json` when
+the mesh has more than one rank).
 """
 
 import json
@@ -73,13 +89,16 @@ from demo2program_tpu_torch.eval.evaler import (
     config_from_dataset, fetch_batch, program_vocab)
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
+from demo2program_tpu_torch.parallel.mesh import (
+    data_parallel_size, gather_host_rows, gather_rows, make_mesh,
+    process_world, shard_rows)
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.tools.karel_render import state2image
 from demo2program_tpu_torch.train.device_cache import (
     DoomDeviceCache, KarelDeviceCache, estimate_cache_bytes)
 from demo2program_tpu_torch.train.step import (
     TrainState, make_eval_step, make_train_step, require_deterministic_cuda,
-    resolve_device, to_device)
+    to_device)
 from demo2program_tpu_torch.utils import log
 from demo2program_tpu_torch.utils.png import write_png
 
@@ -104,7 +123,16 @@ def _cache_switch(dataset_type):
 class Trainer:
     def __init__(self, args, dataset_train, dataset_test, device="cuda"):
         self.args = args
-        self.device = resolve_device(device)
+        self.mesh = mesh = make_mesh(
+            num_devices=data_parallel_size(args.batch_size, process_world()),
+            device=device)
+        self.device = mesh.device
+        self.cache = self.pipe_train = None
+        if not mesh.active:
+            log.warn("this process is outside the %d-device mesh: it takes "
+                     "no step", mesh.world)
+            return
+        self.writes = mesh.rank == 0  # rank 0 alone writes the train dir
         if self.device.type == "cuda":
             require_deterministic_cuda()
         self.cfg = cfg = config_from_dataset(args, dataset_train)
@@ -127,30 +155,30 @@ class Trainer:
         self.state = TrainState(self.model, args.learning_rate,
                                 args.lr_weight_decay)
         self.train_step = make_train_step(self.state, cfg, args.model,
-                                          seed=args.seed)
+                                          seed=args.seed, mesh=mesh)
         self.eval_step = make_eval_step(self.model, cfg, args.model,
-                                        image_tensors=args.sample_images)
+                                        image_tensors=args.sample_images,
+                                        mesh=mesh)
         induction = args.model == "induction_baseline"
-        self.cache = self.pipe_train = None
         if not _cache_switch(cfg.dataset_type):
             log.info("%s device cache off: streaming the train split",
                      cfg.dataset_type)
         elif cfg.dataset_type == "karel":
             self.cache = KarelDeviceCache(
                 dataset_train, self.device, args.batch_size, args.seed,
-                include_test=induction)
+                include_test=induction, mesh=mesh)
         elif self._doom_cache_fits(dataset_train):
             self.cache = DoomDeviceCache(
                 dataset_train, self.device, args.batch_size, args.seed,
-                include_test_actions=induction)
+                include_test_actions=induction, mesh=mesh)
         if self.cache is None:
             self.pipe_train = BatchPipeline(
-                dataset_train, args.batch_size, shuffle=True, seed=args.seed,
-                device=self.device,
+                dataset_train, args.batch_size, self.device, shuffle=True,
+                seed=args.seed,
                 drop_keys=() if induction else TRAIN_DROP[cfg.dataset_type],
-                compact=cfg.dataset_type == "karel")
+                compact=cfg.dataset_type == "karel", mesh=mesh)
         self.test_stream = _InfiniteEval(dataset_test, args.batch_size,
-                                         args.seed, cfg.dataset_type)
+                                         args.seed, cfg.dataset_type, mesh)
 
         # auto-resume takes precedence over --checkpoint (a warm start)
         self._auto_resumed = False
@@ -177,28 +205,31 @@ class Trainer:
                                    cfg.level)
 
     def _doom_cache_fits(self, dataset):
-        """Does the ViZDoom train split fit the card's free memory? If not,
-        the trainer streams, with the JAX trainer's warning
-        (demo2program_tpu/train/trainer.py:170-184). The CPU holds any."""
+        """Does the rank's shard of the ViZDoom train split fit the card's
+        free memory (JAX's est / n_dev, demo2program_tpu/train/trainer.py:
+        170-184)? If not, the trainer streams, with the JAX trainer's
+        warning. The CPU holds any."""
         if self.device.type != "cuda":
             return True
-        est = estimate_cache_bytes(dataset)
+        est = estimate_cache_bytes(dataset) / self.mesh.world
         free, _ = torch.cuda.mem_get_info(self.device)
         if est <= free:
             return True
-        log.warn("doom train split ~%.1f GB exceeds the card's free memory "
-                 "(%.1f GB); falling back to streaming", est / 1e9,
+        log.warn("doom train split ~%.1f GB/chip exceeds the card's free "
+                 "memory (%.1f GB); falling back to streaming", est / 1e9,
                  free / 1e9)
         return False
 
     # -- checkpointing --------------------------------------------------------
     def save(self):
+        """Rank 0 writes ckpt/<step>.pt; every rank of the mesh waits for
+        it at a barrier."""
         step = self.state.step
         path = checkpoint.checkpoint_path(self.train_dir, step)
-        if os.path.exists(path):
-            return  # already on disk (resume relaunch after a final save)
-        checkpoint.save(self.state.state_dict(), path)
-        log.infov("Saved checkpoint at %d", step)
+        if self.writes and not os.path.exists(path):  # not on disk yet
+            checkpoint.save(self.state.state_dict(), path)
+            log.infov("Saved checkpoint at %d", step)
+        self.mesh.barrier()
 
     def restore(self, path):
         """Warm start from a trainer checkpoint (the whole train state) or
@@ -227,6 +258,9 @@ class Trainer:
         return dict(zip(keys, values.tolist()))
 
     def _log_line(self, split, step, report, step_time):
+        """The log line, rank 0's; instances/sec of the global batch."""
+        if not self.writes:
+            return
         step_time = max(step_time, 1e-3)
         log.info(
             " [%5s step %6d] Loss: %.5f (%.3f sec/batch, "
@@ -234,6 +268,8 @@ class Trainer:
             self.args.batch_size / step_time)
 
     def _write_metrics(self, split, step, report):
+        if not self.writes:
+            return
         rec = {"split": split, "step": int(step), "time": time.time()}
         rec.update(report)
         with open(self.metrics_path, "a") as f:
@@ -325,7 +361,9 @@ class Trainer:
                               np.ones((8, 8), np.uint8)))
 
     def _test_sample(self):
-        """One eval-mode forward with greedy decode on a test batch."""
+        """One eval-mode forward with greedy decode on a test batch: the
+        global batch's report; the samples' programs gathered to rank 0
+        (the images read row 0, which is rank 0's)."""
         t1 = time.time()
         batch = next(self.test_stream)
         report, evals = self.eval_step(to_device(batch, self.device))
@@ -333,21 +371,27 @@ class Trainer:
         step = self.state.step
         self._log_line("val", step, report, time.time() - t1)
         self._write_metrics("val", step, report)
-        self._write_samples(step, batch, {k: v.cpu().numpy()
-                                          for k, v in evals.items()})
+        evals = {k: gather_rows(v, self.mesh).cpu().numpy()
+                 for k, v in evals.items() if v.dim() > 0}
+        programs = gather_host_rows({k: batch[k] for k in (
+            "program_tokens", "program_len")}, self.mesh)
+        if self.writes:
+            self._write_samples(step, dict(batch, **programs), evals)
 
     # -- loop ------------------------------------------------------------------
     def train(self, max_steps=1_000_000):
         """Train to state.step + max_steps (a resumed run: to the target in
         resume.json)."""
         args = self.args
+        if not self.mesh.active:
+            return
         start = self.state.step
         resume_path = os.path.join(self.train_dir, "resume.json")
         target = start + max_steps
         if self._auto_resumed and os.path.exists(resume_path):
             with open(resume_path) as f:
                 target = int(json.load(f)["target_step"])
-        else:
+        elif self.writes:
             with open(resume_path, "w") as f:
                 json.dump({"target_step": target}, f)
         if start >= target:
@@ -419,7 +463,8 @@ class Trainer:
         profiler.stop()
         out_dir = os.path.join(self.train_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"trace_steps_{first}-{end}.json")
+        rank = f"_rank{self.mesh.rank}" if self.mesh.world > 1 else ""
+        path = os.path.join(out_dir, f"trace_steps_{first}-{end}{rank}.json")
         profiler.export_chrome_trace(path)
         log.infov("profiler trace of steps [%d, %d) written to %s", first,
                   end, path)
@@ -430,15 +475,18 @@ class _InfiniteEval:
     """Endless shuffled test batches (numpy, on the host): JAX's
     _InfiniteEval over BatchPipeline(shuffle=True), compact for Karel and
     full-wire for ViZDoom, with the same id order (numpy RandomState(seed)
-    reshuffles every epoch; the ragged tail is dropped)."""
+    reshuffles every epoch; the ragged tail is dropped). With a data `mesh`
+    every rank walks the global id stream and makes its rows only."""
 
-    def __init__(self, dataset, batch_size, seed, dataset_type="karel"):
+    def __init__(self, dataset, batch_size, seed, dataset_type="karel",
+                 mesh=None):
         if batch_size > len(dataset.ids):
             raise ValueError(f"batch_size {batch_size} exceeds the test "
                              f"split size {len(dataset.ids)}")
         self.dataset = dataset
         self.dataset_type = dataset_type
         self.batch_size = batch_size
+        self.mesh = mesh
         self.rng = np.random.RandomState(seed)
         self._id_batches = self._make_id_batches()
 
@@ -452,5 +500,5 @@ class _InfiniteEval:
                 yield [ids[i] for i in order[b * bs:(b + 1) * bs]]
 
     def __next__(self):
-        return fetch_batch(self.dataset, next(self._id_batches),
-                           self.dataset_type)
+        ids = shard_rows(np.asarray(next(self._id_batches)), self.mesh)
+        return fetch_batch(self.dataset, ids.tolist(), self.dataset_type)

@@ -31,10 +31,15 @@ for name in names:
 import chip_smoke
 for name in ("tools.eval_execution", "tools.inspect_output", "native",
              "data.karel_generator", "data.merge_datasets", "data.pipeline",
-             "cli.generator_cli", "tools.visualize_data", "utils.png"):
+             "cli.generator_cli", "tools.visualize_data", "utils.png",
+             "parallel", "parallel.mesh", "tools.hit_analysis",
+             "tools.measure_program_fix_accuracy",
+             "tools.doom_error_analysis"):
     assert "demo2program_tpu_torch." + name in names, name
-# nothing builds at import
+# nothing builds at import, and no process group forms
 assert sys.modules["demo2program_tpu_torch.native"]._lib is None
+import torch.distributed
+assert not torch.distributed.is_initialized()
 print(len(names))
 """
 

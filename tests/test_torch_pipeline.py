@@ -67,7 +67,8 @@ def test_id_batches_match_jax(split, shuffle):
     """Shuffled: three epochs of the endless stream; single epoch: every
     batch until the stream ends (the ragged tail dropped)."""
     jax_pipe = JaxPipeline(split, BS, shuffle=shuffle, seed=3, compact=True)
-    pipe = BatchPipeline(split, BS, shuffle=shuffle, seed=3, compact=True)
+    pipe = BatchPipeline(split, BS, "cpu", shuffle=shuffle, seed=3,
+                         compact=True)
     n = 3 * (len(split.ids) // BS) if shuffle else None
     want = [next(jax_pipe) for _ in range(n)] if n else list(jax_pipe)
     got = [next(pipe) for _ in range(n)] if n else list(pipe)
@@ -88,8 +89,8 @@ def test_fast_forward_then_next_is_the_n_plus_first(split):
     for pre in (0, 2):  # batches drawn (and more queued) before skipping
         for n in (1, 3, 7):
             skipped, walked, jax_pipe = (
-                BatchPipeline(split, BS, seed=1, compact=True),
-                BatchPipeline(split, BS, seed=1, compact=True),
+                BatchPipeline(split, BS, "cpu", seed=1, compact=True),
+                BatchPipeline(split, BS, "cpu", seed=1, compact=True),
                 JaxPipeline(split, BS, seed=1, compact=True))
             for pipe in (skipped, walked, jax_pipe):
                 for _ in range(pre):
@@ -114,7 +115,8 @@ def test_drop_keys_match_jax(split, vizdoom_path):
     cases.append((train, jax_train, "vizdoom", False))
     for ds, jax_ds, kind, compact in cases:
         drop = TRAIN_DROP[kind]
-        pipe = BatchPipeline(ds, BS, seed=2, drop_keys=drop, compact=compact)
+        pipe = BatchPipeline(ds, BS, "cpu", seed=2, drop_keys=drop,
+                             compact=compact)
         got = next(pipe)
         pipe.close()
         want = next(JaxPipeline(jax_ds, BS, seed=2, drop_keys=drop,
@@ -134,8 +136,8 @@ def test_drop_keys_match_jax(split, vizdoom_path):
 
 def test_compact_streamed_batch_equals_device_cache_gather(split):
     cache = KarelDeviceCache(split, "cpu", BS, seed=0)
-    pipe = BatchPipeline(split, BS, seed=4, drop_keys=TRAIN_DROP["karel"],
-                         compact=True)
+    pipe = BatchPipeline(split, BS, "cpu", seed=4,
+                         drop_keys=TRAIN_DROP["karel"], compact=True)
     for _ in range(3):
         batch = next(pipe)
         rows = torch.as_tensor([split.index[i] for i in batch["id"]])
@@ -231,8 +233,8 @@ def test_many_workers_keep_the_stream_order(split):
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        pipe = BatchPipeline(split, 2, seed=9, num_threads=16, prefetch=8,
-                             compact=True)
+        pipe = BatchPipeline(split, 2, "cpu", seed=9, num_threads=16,
+                             prefetch=8, compact=True)
         got, drawn = [], 0
         while drawn < 60:
             if drawn % 7 == 3:
