@@ -142,8 +142,25 @@ without them. It:
      batches and a line with the world-2 step's time split into compute,
      the gradients' all-reduce and the optimizer, with the card's name and
      power limit. The kernel phase also holds the kernel at a rank's shapes
-     ((160, 48), (16, 512), (400, 432), (400, 512));
- 14. prints one JSON line describing the kernel: its time, the plain
+     ((160, 48), (16, 512), (400, 432), (400, 512)). On a machine with
+     several cards the same runs over NCCL, a card a rank, beside the
+     single-process step timed in the same call, and with four cards or
+     more Karel on the 2-D mesh below, a card a rank;
+ 14. dp demo phase (the 2-D data x demo mesh, parallel/mesh.py:
+     make_mesh_2d and shard_batch_2d, through the port's train step; gloo,
+     every rank a spawned process on cuda:0): the Karel full model at dp 2
+     x demo 2 (world 4, 5 of the 10 demos and 16 rows a rank), 10 steps on
+     expanded batches and 10 on the compact wire, and ViZDoom's at dp 1 x
+     demo 5 (world 5, 5 of the 25 demos a rank), 10 steps; every step's
+     loss (1e-4) and grad norm (rtol 1e-4) held against the single
+     process's step from the same parameters on the same global batch, the
+     ranks' parameters bitwise equal after every step, exactly 125 / 60
+     launches a rank a step; prints the step's time split into compute, the
+     demo group's, the data group's and the world's collectives and the
+     gradients' all-reduce, beside the single process's step, with the
+     card's name and power limit. The kernel phase also holds the kernel
+     at a rank's shapes ((80, 48), (80, 512), (160, 432));
+ 15. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
      or by operations) at every shape, with every path's launches, then
@@ -200,14 +217,16 @@ from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.parallel.mesh import (
-    all_reduce_gradients, gather_rows, make_mesh)
+    all_reduce_gradients, gather_rows, make_mesh, make_mesh_2d,
+    shard_batch_2d)
 from demo2program_tpu_torch.tools import eval_execution
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.device_cache import (
     DoomDeviceCache, KarelDeviceCache)
 from demo2program_tpu_torch.train.step import (
-    compute_call, deterministic_cuda, forward_loss, full_precision_matmuls,
-    global_norm, make_eval_step, make_train_step, sampling_prob, to_device)
+    TrainState, compute_call, deterministic_cuda, forward_loss,
+    full_precision_matmuls, global_norm, make_eval_step, make_train_step,
+    sampling_prob, to_device)
 from demo2program_tpu_torch.train.trainer import Trainer
 from demo2program_tpu_torch.utils.png import read_png
 
@@ -245,6 +264,16 @@ DP_WORLD = 2
 DP_SHAPES = [(BATCH // DP_WORLD * SPLIT.k, 48), (BATCH // DP_WORLD, 512),
              (BATCH // DP_WORLD * VZD_K, 432), (BATCH // DP_WORLD * VZD_K,
                                                  512)]
+# the 2-D data x demo mesh (parallel/mesh.py:make_mesh_2d), (dp, demo_par)
+# per domain: Karel's k 10 at dp 2 x demo 2, ViZDoom's k 25 at dp 1 x demo
+# 5. A Karel rank runs its 16 rows x 5 demos = 80 rows through the encoder
+# and the action and perception decoders, the program decoder at (16,
+# 512); a ViZDoom rank 32 x 5 = 160 rows, (160, 512) and (32, 512) as
+# beam's and the full model's rows above
+DEMO_MESHES = {"karel": (2, 2), "vizdoom": (1, 5)}
+DEMO_SHAPES = [(BATCH // 2 * SPLIT.k // 2, 48), (BATCH // 2 * SPLIT.k // 2,
+                                                 512),
+               (BATCH * VZD_K // 5, 432)]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W):
 # HBM bytes/s, and FLOP/s of the tensor cores' TF32 and bf16 products. The
 # f32 kernel takes three TF32 products per f32 product (3xTF32 split).
@@ -450,7 +479,7 @@ def kernel_phase():
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for B, D in (KERNEL_SHAPES + BEAM_SHAPES + BASELINE_SHAPES
-                     + VIZDOOM_SHAPES + DP_SHAPES):
+                     + VIZDOOM_SHAPES + DP_SHAPES + DEMO_SHAPES):
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=g, device=dev)
                         * scale).to(dtype)
@@ -2160,14 +2189,15 @@ def synchronize(device):
         torch.cuda.synchronize(device)
 
 
-def replicas_equal(trainer):
-    """Are the parameters and BN statistics of every rank equal bit for
-    bit? (Their bits, summed into a zero row per rank across the group.)"""
-    tensors = list(trainer.model.parameters()) + [
-        b for b in trainer.model.buffers() if b.dtype == torch.float32]
+def replicas_equal(model, mesh):
+    """Are the parameters and BN statistics of every rank of the mesh's
+    world equal bit for bit? (Their bits, summed into a zero row per rank
+    across the world.)"""
+    tensors = list(model.parameters()) + [
+        b for b in model.buffers() if b.dtype == torch.float32]
     bits = torch.cat([t.detach().reshape(-1) for t in tensors]).view(
         torch.int32)
-    rows = gather_rows(bits[None], trainer.mesh)
+    rows = gather_rows(bits[None], mesh)
     return bool((rows == rows[0]).all())
 
 
@@ -2204,7 +2234,8 @@ def dp_run(job, run):
                                  "grad_norm": report["grad_norm"].item(),
                                  "single": single})
         if trainer.mesh.world > 1:
-            out["replicas_equal"].append(replicas_equal(trainer))
+            out["replicas_equal"].append(replicas_equal(trainer.model,
+                                                        trainer.mesh))
         return report
 
     trainer.train_step = checked
@@ -2217,7 +2248,17 @@ def dp_run(job, run):
         fused_lstm.fused_lstm_step.launches_by_dtype.items()}
     out["per_step"], out["per_sample"] = lstm_launches(trainer.cfg)
     if run.get("timed"):
-        out["step_s"] = dp_step_times(trainer, job["timing_steps"])
+        out["step_s"] = mesh_step_times(
+            trainer.state, trainer.cfg, trainer.cache.batch(0), trainer.mesh,
+            job["timing_steps"])
+        if trainer.writes:  # the global batch's step in one process
+            cache = trainer.cache
+            batch = {k: v.index_select(0, cache.indices(0))
+                     for k, v in cache.data.items()}
+            out["single_step_s"] = single_step_times(
+                trainer.cfg, trainer.model, batch, job["timing_steps"],
+                trainer.args.learning_rate)
+        trainer.mesh.barrier()
     return out
 
 
@@ -2237,48 +2278,62 @@ def single_step_reference(trainer, split, global_rows=None):
         rows = lambda s: torch.as_tensor(global_rows[s], device=device)
 
     def reference(s):
-        # launches made for the comparison do not count
-        counts = (fused_lstm.fused_lstm_step.launches,
-                  dict(fused_lstm.fused_lstm_step.launches_by_dtype))
-        model.load_state_dict(trainer.model.state_dict())
         batch = {k: v.index_select(0, rows(s)) for k, v in cache.data.items()}
-        loss, _ = forward_loss(model, cfg, batch, cfg.model)
-        loss.backward()
-        norm = global_norm([p.grad for p in model.parameters()
-                            if p.grad is not None])
-        model.zero_grad(set_to_none=True)
-        fused_lstm.fused_lstm_step.launches = counts[0]
-        fused_lstm.fused_lstm_step.launches_by_dtype.update(counts[1])
-        return {"loss": loss.item(), "grad_norm": norm.item()}
+        return uncounted(single_loss_norm, model, trainer.model, cfg, batch)
 
     return reference
 
 
-def dp_step_times(trainer, steps):
-    """Median seconds of a data-parallel step's phases, each ended by a
-    synchronise: `compute` (forward and backward, BatchNorm's and the
-    objective's all-reduces included), the gradients' all-reduce, and the
-    optimizer (after one warm-up step)."""
-    state, cfg, mesh = trainer.state, trainer.cfg, trainer.mesh
-    batch = trainer.cache.batch(0)
+def uncounted(fn, *args):
+    """fn(*args) with the kernel's launch counts left as they were:
+    launches made for a comparison or a timing do not count."""
+    counts = (fused_lstm.fused_lstm_step.launches,
+              dict(fused_lstm.fused_lstm_step.launches_by_dtype))
+    try:
+        return fn(*args)
+    finally:
+        fused_lstm.fused_lstm_step.launches = counts[0]
+        fused_lstm.fused_lstm_step.launches_by_dtype.clear()
+        fused_lstm.fused_lstm_step.launches_by_dtype.update(counts[1])
+
+
+def single_loss_norm(ref, model, cfg, batch):
+    """(loss, grad norm) of one single-process train step (no process
+    group, no update) of `ref`, a model of cfg, from `model`'s parameters
+    on the global `batch`."""
+    ref.load_state_dict(model.state_dict())
+    loss, _ = forward_loss(ref, cfg, batch, cfg.model)
+    loss.backward()
+    norm = global_norm([p.grad for p in ref.parameters()
+                        if p.grad is not None])
+    ref.zero_grad(set_to_none=True)
+    return {"loss": loss.item(), "grad_norm": norm.item()}
+
+
+def single_step_times(cfg, model, batch, steps, learning_rate):
+    """Median seconds of the single-process step (no process group) of a
+    copy of `model` on the global `batch`: forward and backward, the
+    optimizer and the whole (after one warm-up step), each ended by a
+    synchronise; the same card and the same call as the mesh's step."""
+    ref = copy.deepcopy(model)
+    state = TrainState(ref, learning_rate)
+    device = next(ref.parameters()).device
 
     def now():
-        synchronize(trainer.device)
+        synchronize(device)
         return time.perf_counter()
 
     runs = []
     for _ in range(steps + 1):
         t0 = now()
-        loss, _ = forward_loss(state.model, cfg, batch, cfg.model, mesh)
+        loss, _ = forward_loss(ref, cfg, batch, cfg.model)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         t1 = now()
-        all_reduce_gradients(state.params, mesh)
-        t2 = now()
         state.apply_gradients()
-        t3 = now()
-        runs.append({"compute": t1 - t0, "all_reduce": t2 - t1,
-                     "optimizer": t3 - t2, "total": t3 - t0})
+        t2 = now()
+        runs.append({"compute": t1 - t0, "optimizer": t2 - t1,
+                     "total": t2 - t0})
     return {k: float(np.median([r[k] for r in runs[1:]])) for k in runs[0]}
 
 
@@ -2291,10 +2346,11 @@ def dp_args(out_dir, run, dataset_type="karel"):
                         num_k=num_k)
 
 
-def spawn_ranks(world, backend, job, tag, device=None):
+def spawn_ranks(world, backend, job, tag, device=None, rank_main=None):
     """Run `job` (its runs' trainer args made here) on `world` spawned
-    ranks, each on `device` (default DP_DEVICE; "cuda": a card a rank) ->
-    each rank's results, the job."""
+    ranks, each on `device` (default DP_DEVICE; "cuda": a card a rank),
+    each running `rank_main` (default _dp_rank) -> each rank's results,
+    the job."""
     out_dir = os.path.join(OUT_DIR, tag)
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
@@ -2305,7 +2361,8 @@ def spawn_ranks(world, backend, job, tag, device=None):
         run["train_dir"] = run["args"].train_dir
     job_path = os.path.join(out_dir, "job.pt")
     torch.save(job, job_path)
-    mp.start_processes(_dp_rank, args=(world, backend, job_path, out_dir),
+    mp.start_processes(rank_main or _dp_rank,
+                       args=(world, backend, job_path, out_dir),
                        nprocs=world, start_method="spawn")
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)], job
@@ -2453,9 +2510,12 @@ def dp_phase(split, vizdoom_splits, train_ckpt):
             vz_train, "vizdoom", os.path.join(OUT_DIR, "dp_single_vizdoom"),
             rows=ranks[0]["vizdoom"]["global_rows"]))
     res["step_s"] = [r["karel"]["step_s"] for r in ranks]
+    res["single_step_s"] = ranks[0]["karel"]["single_step_s"]
     print(f"dp step ({CARD}): world {DP_WORLD}, gloo, both ranks on "
           f"cuda:0, Karel bs {BATCH} (rows a rank {BATCH // DP_WORLD}), "
-          f"median s of rank 0: " + json.dumps(res["step_s"][0]), flush=True)
+          f"median s of rank 0: " + json.dumps(res["step_s"][0])
+          + "; the single process's step on the same card: "
+          + json.dumps(res["single_step_s"]), flush=True)
     print("dp " + json.dumps(res), flush=True)
     return res
 
@@ -2466,7 +2526,10 @@ def dp_cards_phase(split, vz_train):
     ViZDoom steps, each held against the single process's step from the
     same parameters on the same global batch, the replicas bitwise equal
     after every step, exact launches per rank, and the step's time split
-    into compute and the gradients' all-reduce."""
+    into compute and the gradients' all-reduce beside the single process's
+    step on the same global batch in the same call; with four cards or
+    more, also Karel on the 2-D mesh at dp 2 x demo 2, a card a rank
+    (demo_spawn)."""
     world = torch.cuda.device_count()
     runs = [dict(name="karel", dir="karel", dataset_type="karel",
                  steps=DP_STEPS, log_step=1, timed=True, reference=True),
@@ -2484,10 +2547,213 @@ def dp_cards_phase(split, vz_train):
         res[name] = dp_against_single(f"{name} over {world} cards",
                                       ranks[0][name], dirs[name])
     res["step_s"] = [r["karel"]["step_s"] for r in ranks]
+    res["single_step_s"] = ranks[0]["karel"]["single_step_s"]
     print(f"dp cards step ({CARD}): world {world}, nccl, a card a rank, "
           f"Karel bs {BATCH} (rows a rank {BATCH // world}), median s of "
-          f"rank 0: " + json.dumps(res["step_s"][0]), flush=True)
+          f"rank 0: " + json.dumps(res["step_s"][0]) + "; the single "
+          f"process's step on cuda:0 in this call: "
+          + json.dumps(res["single_step_s"]), flush=True)
+    if world >= 4:  # the 2-D mesh, a card a rank
+        res["demo_mesh"] = demo_spawn("karel", split, "nccl", device="cuda",
+                                      tag="dp_cards_demo_karel")
     print("dp cards " + json.dumps(res), flush=True)
+    return res
+
+
+def _demo_rank(rank, world, backend, job_path, out_dir):
+    """One rank of dp_demo_phase: the entry points' process-wide modes, the
+    job's 2-D mesh over a file store, the job's runs -> rank<r>.pt."""
+    deterministic_cuda()
+    full_precision_matmuls()
+    job = torch.load(job_path, weights_only=False)
+    dp, demo_par = job["mesh"]
+    mesh = make_mesh_2d(dp, demo_par, backend=backend, device=job["device"],
+                        rank=rank, world_size=world,
+                        init_method=f"file://{job['store']}")
+    try:
+        out = {run["name"]: demo_run(job, run, mesh) for run in job["runs"]}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def demo_run(job, run, mesh):
+    """DP_STEPS steps of the port's train step (make_train_step over the
+    2-D `mesh`) of a full model at full width drawn from SEED, each on the
+    rank's part (shard_batch_2d) of the step's global batch: the draw of an
+    unsharded device cache, compact with run["compact"] (the replay runs on
+    the rank's demos), else expanded -> the mesh, the launches, the
+    replicas' equality after every step, on rank 0 each step against the
+    single process's step from the same parameters on the same global batch
+    (the launches of that comparison do not count), and with run["timed"]
+    the step's phase times beside the single process's."""
+    args = run["args"]
+    split = job[args.dataset_type]
+    cfg = config_from_dataset(args, split)
+    device = mesh.device
+    model = get_model_class(cfg.model)(cfg)
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.to(device)
+    state = TrainState(model, args.learning_rate)
+    step = make_train_step(state, cfg, cfg.model, mesh=mesh)
+    cache = (KarelDeviceCache if args.dataset_type == "karel"
+             else DoomDeviceCache)(split, device, args.batch_size, args.seed)
+    ref = (get_model_class(cfg.model)(cfg).to(device) if mesh.rank == 0
+           else None)
+    out = {"mesh": (mesh.world, mesh.dp, mesh.demo_par, mesh.backend),
+           "rank": mesh.rank, "replicas_equal": [], "steps": []}
+
+    def global_batch(s):
+        batch = cache.batch(s)
+        return batch if run.get("compact") else expand_batch(batch, cfg)
+
+    fused_lstm.reset_launches()
+    for s in range(DP_STEPS):
+        batch = global_batch(s)
+        local = {k: v.contiguous()
+                 for k, v in shard_batch_2d(batch, mesh).items()}
+        single = (uncounted(single_loss_norm, ref, model, cfg, batch)
+                  if ref is not None else None)
+        report = step(local)
+        if ref is not None:
+            out["steps"].append({"loss": report["loss"].item(),
+                                 "grad_norm": report["grad_norm"].item(),
+                                 "single": single})
+        out["replicas_equal"].append(replicas_equal(model, mesh))
+    synchronize(device)
+    out["launches"] = fused_lstm.fused_lstm_step.launches
+    out["per_step"], _ = lstm_launches(cfg)
+    out["local_k"] = local["demo_len"].shape[1]
+    if run.get("timed"):
+        out["step_s"] = mesh_step_times(state, cfg, local, mesh,
+                                        job["timing_steps"])
+        if ref is not None:
+            out["single_step_s"] = single_step_times(
+                cfg, model, batch, job["timing_steps"], args.learning_rate)
+        mesh.barrier()
+    return out
+
+
+def mesh_step_times(state, cfg, batch, mesh, steps):
+    """Median seconds of a data-parallel step's phases on the rank's
+    `batch`, each ended by a synchronise, with every all-reduce inside
+    forward and backward timed between two synchronisations and summed by
+    group: `world` (BatchNorm's sums, the objective's denominators), and on
+    a 2-D mesh `demo` (the demo group's sums and gathers over the k demos)
+    and `data` (the per-demo denominators); `compute` is forward and
+    backward without them; then the gradients' all-reduce and the
+    optimizer (after one warm-up step)."""
+    device = mesh.device
+    names = {id(g): n for n, g in (("demo", mesh.demo_group),
+                                    ("data", mesh.data_group))
+             if g is not None}
+    real = dist.all_reduce
+    spent = {}
+
+    def all_reduce(t, *a, group=None, **kw):
+        synchronize(device)
+        t0 = time.perf_counter()
+        work = real(t, *a, group=group, **kw)
+        synchronize(device)
+        key = names.get(id(group), "world")
+        spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return work
+
+    def now():
+        synchronize(device)
+        return time.perf_counter()
+
+    runs = []
+    for _ in range(steps + 1):
+        spent.clear()
+        t0 = now()
+        with mock.patch.object(dist, "all_reduce", all_reduce):
+            loss, _ = forward_loss(state.model, cfg, batch, cfg.model, mesh)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        t1 = now()
+        all_reduce_gradients(state.params, mesh)
+        t2 = now()
+        state.apply_gradients()
+        t3 = now()
+        inside = {f"{k}_collectives": spent.get(k, 0.0)
+                  for k in ("demo", "data", "world")}
+        runs.append(dict(inside, compute=t1 - t0 - sum(inside.values()),
+                         all_reduce=t2 - t1, optimizer=t3 - t2,
+                         total=t3 - t0))
+    return {k: float(np.median([r[k] for r in runs[1:]])) for k in runs[0]}
+
+
+def check_demo_ranks(tag, ranks, world, dp, demo_par, backend):
+    """Every rank of every run of a dp_demo_phase spawn: the mesh, the
+    replicas bitwise equal after each step, DP_STEPS x (4 T + L) launches
+    and its k / D demos; rank 0's steps against the single process's
+    (dp_against_single's gate) -> {run: launches per rank, the comparison,
+    the step's times}."""
+    res = {}
+    for name in ranks[0]:
+        for r in ranks:
+            got = r[name]
+            check(got["mesh"] == (world, dp, demo_par, backend),
+                  f"{tag} {name}: mesh {got['mesh']}")
+            check(len(got["replicas_equal"]) == DP_STEPS
+                  and all(got["replicas_equal"]),
+                  f"{tag} {name}: the replicas differ after a step "
+                  f"{got['replicas_equal']}")
+            want = DP_STEPS * got["per_step"]
+            check(got["launches"] == want,
+                  f"{tag} {name} rank {got['rank']}: {got['launches']} "
+                  f"launches, expected {DP_STEPS} x {got['per_step']}")
+        first = ranks[0][name]
+        res[name] = {
+            "launches_per_rank": [r[name]["launches"] for r in ranks],
+            "per_step": first["per_step"], "local_k": first["local_k"],
+            "vs_single": dp_against_single(f"{tag} {name}", first, None)}
+        if "step_s" in first:
+            res[name]["step_s"] = first["step_s"]
+            res[name]["single_step_s"] = first["single_step_s"]
+            print(f"dp demo step ({CARD}): {tag} {name}, world {world} = "
+                  f"dp {dp} x demo {demo_par}, {backend}, {first['local_k']} "
+                  f"demos and {BATCH // dp} rows a rank, median s of rank 0: "
+                  + json.dumps(first["step_s"]) + "; the single process's "
+                  "step on the same card: "
+                  + json.dumps(first["single_step_s"]), flush=True)
+    return res
+
+
+def demo_spawn(domain, data, backend, device=None, tag=None):
+    """dp_demo_phase's runs of `domain` on its DEMO_MESHES mesh: Karel on
+    expanded and on compact batches, ViZDoom on expanded ones, the first
+    timed -> check_demo_ranks' results."""
+    dp, demo_par = DEMO_MESHES[domain]
+    runs = [dict(name=domain, dir=domain, dataset_type=domain,
+                 steps=DP_STEPS, log_step=1, timed=True)]
+    if domain == "karel":
+        runs.append(dict(name="karel_compact", dir="karel_compact",
+                         dataset_type="karel", steps=DP_STEPS, log_step=1,
+                         compact=True))
+    tag = tag or f"dp_demo_{domain}"
+    ranks, _ = spawn_ranks(dp * demo_par, backend, {
+        "mesh": (dp, demo_par), domain: data, "runs": runs}, tag,
+        device=device, rank_main=_demo_rank)
+    return check_demo_ranks(tag, ranks, dp * demo_par, dp, demo_par, backend)
+
+
+def dp_demo_phase(split, vz_train):
+    """The 2-D data x demo mesh on the card (parallel/mesh.py:make_mesh_2d,
+    shard_batch_2d, through the port's train step, as JAX's dry run drives
+    its 2-D mesh), gloo with every rank on cuda:0 (NCCL takes one card a
+    rank): Karel's full model at dp 2 x demo 2 (world 4), DP_STEPS steps on
+    expanded batches and DP_STEPS on the compact wire; ViZDoom's at dp 1 x
+    demo 5 (world 5), DP_STEPS steps. Each step within LOSS_ATOL /
+    NORM_RTOL of the single process's step from the same parameters, the
+    replicas bitwise equal after every step, 125 / 60 launches a rank a
+    step, and the step's time split into compute, the collectives by group
+    and the gradients' all-reduce."""
+    res = {"card": CARD, "backend": DP_BACKENDS[1]}
+    res.update(demo_spawn("karel", split, DP_BACKENDS[1]))
+    res.update(demo_spawn("vizdoom", vz_train, DP_BACKENDS[1]))
+    print("dp demo " + json.dumps(res), flush=True)
     return res
 
 
@@ -2551,6 +2817,7 @@ def main():
     bf16 = timed("bf16", bf16_phase, split, vizdoom_splits)
     data = timed("data", data_phase, split, vizdoom_splits)
     dp = timed("dp", dp_phase, split, vizdoom_splits, train["checkpoint"])
+    dp_demo = timed("dp demo", dp_demo_phase, split, vizdoom_splits[0])
     if torch.cuda.device_count() > 1:  # NCCL takes a card a rank
         timed("dp cards", dp_cards_phase, split, vizdoom_splits[0])
     print(f"phase all: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
@@ -2583,7 +2850,9 @@ def main():
             "dp_nccl_world1_train": dp["nccl_world1_launches"],
             "dp_gloo_karel_train_per_rank": dp["karel_launches_per_rank"],
             "dp_gloo_vizdoom_train_per_rank":
-                dp["vizdoom_launches_per_rank"]},
+                dp["vizdoom_launches_per_rank"],
+            **{f"dp_demo_{n}_train_per_rank": dp_demo[n]["launches_per_rank"]
+               for n in ("karel", "karel_compact", "vizdoom")}},
         "shapes": [dict(r, **contract(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

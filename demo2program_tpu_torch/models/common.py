@@ -14,7 +14,8 @@ from torch import nn
 
 from demo2program_tpu_torch.models.encoder import (
     DemoEncoder, SecondPathEncoder, SummarizeFeature)
-from demo2program_tpu_torch.models.ops import Dense
+from demo2program_tpu_torch.models.ops import Dense, MeshModule
+from demo2program_tpu_torch.parallel.mesh import all_gather_demos, demo_mean
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -110,12 +111,13 @@ class SinglePassDemoEncoder(nn.Module):
                 unfold_k(c, bs, k))
 
 
-class TwoPassDemoEncoder(nn.Module):
+class TwoPassDemoEncoder(MeshModule):
     """Full-model and summarizer encoder (`model_full.py:367-404`): a first
     pass per demo, the mean of the final states across demos, then a second
     LSTM pass over the first-pass histories started from that summary;
     summaries of the final states by `rn_aggregation` ('rn' for the full
-    model, 'rn_pure' for the summarizer)."""
+    model, 'rn_pure' for the summarizer). On a 2-D mesh the demos are the
+    rank's k / D, and the means are over the demo group's k."""
 
     def __init__(self, cfg, rn_aggregation):
         super().__init__()
@@ -131,8 +133,8 @@ class TwoPassDemoEncoder(nn.Module):
         bs, k = s_h.shape[0], s_h.shape[1]
         flat_len = fold_k(demo_len)
         hist1, h1, c1 = self.demo_encoder(fold_k(s_h), flat_len)
-        summary_h = unfold_k(h1, bs, k).mean(dim=1)
-        summary_c = unfold_k(c1, bs, k).mean(dim=1)
+        summary_h = demo_mean(unfold_k(h1, bs, k), self.mesh)
+        summary_c = demo_mean(unfold_k(c1, bs, k), self.mesh)
 
         def rep(t):
             return torch.repeat_interleave(t, k, dim=0)
@@ -149,11 +151,13 @@ class TwoPassDemoEncoder(nn.Module):
         }
 
 
-class BaselineAggregation(nn.Module):
+class BaselineAggregation(MeshModule):
     """`aggregate_baseline` (`model_synthesis.py:336-358`): the k demos'
     final (h, c) -> one (h, c), by 'avgpool' or 'maxpool' over k, or by
     'concat' of the k states projected back to `units` by two Dense layers
-    (the reference's bare concat cannot start a units-wide decoder).
+    (the reference's bare concat cannot start a units-wide decoder). On a
+    2-D mesh avgpool is a demo-group mean, and maxpool and concat gather
+    the demo group's states first.
 
     The synthesis and induction models derive from this class, so the two
     projections sit at the model's root, where flax puts them: the JAX
@@ -173,7 +177,9 @@ class BaselineAggregation(nn.Module):
     def aggregate(self, demo_h, demo_c):
         """demo_h, demo_c (bs, k, units) -> (h, c), each (bs, units)."""
         if self.aggregation == "avgpool":
-            return demo_h.mean(dim=1), demo_c.mean(dim=1)
+            return demo_mean(demo_h, self.mesh), demo_mean(demo_c, self.mesh)
+        demo_h = all_gather_demos(demo_h, self.mesh)
+        demo_c = all_gather_demos(demo_c, self.mesh)
         if self.aggregation == "maxpool":
             return demo_h.amax(dim=1), demo_c.amax(dim=1)
         bs = demo_h.shape[0]

@@ -12,7 +12,9 @@ bidirectional encoder of the induction baseline sums its two directions.
 import torch
 from torch import nn
 
-from demo2program_tpu_torch.models.ops import Conv2D, FC, make_lstm_cell
+from demo2program_tpu_torch.models.ops import (
+    Conv2D, FC, MeshModule, make_lstm_cell)
+from demo2program_tpu_torch.parallel.mesh import all_gather_demos, demo_mean
 
 
 class StateEncoder(nn.Module):
@@ -130,26 +132,32 @@ class SecondPathEncoder(nn.Module):
                          init_state=(summary_c, summary_h))
 
 
-class RNPool(nn.Module):
+class RNPool(MeshModule):
     """Relation-network pooling over the k demo features
     (`model_full.py:333-349`): all k x k pairwise concats -> 2 x FC(units,
-    lrelu -> BN) -> mean over both k axes."""
+    lrelu -> BN) -> mean over both k axes. Pair (i, j) is [feat_j, feat_i],
+    flax's order. On a 2-D mesh a rank holding demos i of its slice pairs
+    them with every demo j, gathered from its demo group: (k / D) x k pairs
+    a rank, each pair on one rank, BatchNorm over the world's pairs and the
+    mean a demo-group sum (parallel/mesh.py)."""
 
     def __init__(self, units):
         super().__init__()
         self.fc1 = FC(2 * units, units)
         self.fc2 = FC(units, units)
 
-    def forward(self, feat):  # (bs, k, v)
+    def forward(self, feat):  # (bs, k, v), the rank's k of the demos
+        every = all_gather_demos(feat, self.mesh)  # (bs, K, v)
         bs, k, v = feat.shape
-        tile1 = feat[:, None, :, :].expand(bs, k, k, v)
-        tile2 = feat[:, :, None, :].expand(bs, k, k, v)
-        x = torch.cat([tile1, tile2], dim=3).reshape(bs * k * k, 2 * v)
+        K = every.shape[1]
+        tile1 = every[:, None, :, :].expand(bs, k, K, v)
+        tile2 = feat[:, :, None, :].expand(bs, k, K, v)
+        x = torch.cat([tile1, tile2], dim=3).reshape(bs * k * K, 2 * v)
         x = self.fc2(self.fc1(x))
-        return x.reshape(bs, k, k, -1).mean(dim=(1, 2))
+        return demo_mean(x.reshape(bs, k, K, -1), self.mesh, dim=(1, 2))
 
 
-class SummarizeFeature(nn.Module):
+class SummarizeFeature(MeshModule):
     """Cross-demo aggregation (`model_full.py:351-362`):
       'avgpool'  mean over k
       'rn'       mean + rn_pool (the full model)
@@ -167,6 +175,6 @@ class SummarizeFeature(nn.Module):
     def forward(self, features):  # (bs, k, v)
         if self.aggregation == "rn_pure":
             return self.rn_pool(features)
-        mean = features.mean(dim=1)
+        mean = demo_mean(features, self.mesh)
         return mean if self.aggregation == "avgpool" else (
             mean + self.rn_pool(features))

@@ -44,8 +44,7 @@ class FullModel(nn.Module):
         """batch: the expanded batch (ops/reconstruct.py:expand_batch).
         The keyword arguments are those of synthesis.program_outputs."""
         cfg = self.cfg
-        bs = batch["s_h"].shape[0]
-        k = cfg.k
+        bs, k = batch["s_h"].shape[:2]  # k / D demos on a 2-D mesh's rank
         enc = self.encoder(batch["s_h"], batch["demo_len"].long())
         out = program_outputs(
             self.program_decoder, enc["demo_c_summary"],

@@ -19,6 +19,11 @@ Port of demo2program_tpu/models/induction.py
 
 Quirk kept: the decoder starts from (c, h) = (h summary, c summary), the
 two SWAPPED against every other model (`:675-677`).
+
+On a 2-D mesh (parallel/mesh.py) a rank encodes its k / D seen demos and
+gathers the demo group's attention memory, keys and lengths; the test demos
+are sharded on the data axis only, so the decoder runs replicated across
+the demo group, as the program decoder of the other families does.
 """
 
 import torch
@@ -30,6 +35,7 @@ from demo2program_tpu_torch.models.decoder import embed, greedy_unroll
 from demo2program_tpu_torch.models.encoder import BiLSTMEncoder, LSTMEncoder
 from demo2program_tpu_torch.models.ops import (
     Conv2D, FC, Dense, make_lstm_cell, promoted)
+from demo2program_tpu_torch.parallel.mesh import all_gather_demos
 
 FC_FEATURES = 512  # the state encoder's FC width, whatever the units
 
@@ -185,7 +191,8 @@ class InductionModel(BaselineAggregation):
         ignored, as in the JAX module
         (demo2program_tpu/models/induction.py:159-160)."""
         cfg = self.cfg
-        bs, k, test_k = batch["s_h"].shape[0], cfg.k, cfg.test_k
+        bs, k = batch["s_h"].shape[:2]  # k / D demos on a 2-D mesh's rank
+        test_k = cfg.test_k
         s_h, per = batch["s_h"], batch["per"]
         demo_len = batch["demo_len"].long()
         if cfg.stack_subsequent_state:
@@ -202,7 +209,10 @@ class InductionModel(BaselineAggregation):
         h_sum, c_sum = self.aggregate(unfold_k(h, bs, k),
                                       unfold_k(c, bs, k))
         keys = self.memory_layer(memory)  # one matmul for every step
-        T = memory.shape[2]
+        # every seen demo of the task (the demo group's, on a 2-D mesh)
+        memory, keys, demo_len = (all_gather_demos(t, self.mesh)
+                                  for t in (memory, keys, demo_len))
+        k, T = memory.shape[1], memory.shape[2]
         mask = (torch.arange(T, device=memory.device)[None, None, :]
                 < demo_len[:, :, None])  # (bs, k, T)
 

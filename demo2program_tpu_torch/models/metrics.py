@@ -15,7 +15,9 @@ the global batch: each mean divides the rank's sum by the GLOBAL
 denominator (mask sums summed across the ranks without a gradient, row
 counts times the mesh size), so the returned scalars are partial sums whose
 sum over the ranks is the value over the global batch, as the JAX step
-computes it over its sharded batch.
+computes it over its sharded batch. On a 2-D mesh a rank holds k / D of the
+seen demos: a per-demo term reduces over the data axis
+(parallel/mesh.py:data_axis) and `k_mean` divides by the global k.
 """
 
 import torch
@@ -33,6 +35,13 @@ def batch_mean(x, mesh=None):
     """Mean over the last (batch) axis of the global batch: a partial sum
     under a mesh."""
     return x.sum(-1) / (x.shape[-1] * world_of(mesh))
+
+
+def k_mean(x, mesh=None):
+    """Mean over the leading (demo) axis of the global k demos, of which
+    the rank holds x.shape[0]: a partial sum on a 2-D mesh."""
+    demo_par = 1 if mesh is None else mesh.demo_par
+    return x.sum(0) / (x.shape[0] * demo_par)
 
 
 def sequence_metrics(logits, gt_onehot, gt_len, pred_len, seq_type="program",

@@ -12,12 +12,18 @@ each per-demo term normalised by its own mask sum before the mean over k.
 Host-side metrics (syntax, canonical program, execution accuracy) live in
 eval/scorer.py. With a data `mesh` every batch reduction is over the global
 batch and every scalar is the rank's partial sum (models/metrics.py): the
-local losses sum over the ranks to the single-process loss.
+local losses sum over the ranks to the single-process loss. On a 2-D mesh
+the seen demos' per-demo terms (the full model's action and perception
+heads) reduce over the data axis and divide by the global k; the program
+and the induction model's test demos are replicated across the demo group
+and reduce over the world like every other term (parallel/mesh.py).
 """
 
 import torch
 
-from demo2program_tpu_torch.models.metrics import batch_mean, sequence_metrics
+from demo2program_tpu_torch.models.metrics import (
+    batch_mean, k_mean, sequence_metrics)
+from demo2program_tpu_torch.parallel.mesh import data_axis
 
 
 def _program_stat(logits, batch, pred_tokens=None, mesh=None):
@@ -30,7 +36,9 @@ def _program_stat(logits, batch, pred_tokens=None, mesh=None):
 def _per_k_stats(logits, gt_onehot, gt_len, seq_type, pred_len=None,
                  mesh=None):
     """Per-demo sequence metrics with a leading k axis, like the JAX
-    package's vmap over k. logits/gt: (bs, k, T, V); lengths: (bs, k)."""
+    package's vmap over k. logits/gt: (bs, k, T, V); lengths: (bs, k).
+    `mesh`: the mesh of the demos' reductions (data_axis for the seen
+    demos)."""
     gt_len = gt_len.transpose(0, 1)
     pred_len = gt_len if pred_len is None else pred_len.transpose(0, 1)
     return sequence_metrics(logits.transpose(0, 1),
@@ -72,15 +80,16 @@ def compute_loss(cfg, outputs, batch, model_name, mesh=None):
 
     if model_name == "full":
         demo_len = batch["demo_len"].long()  # action_len alias
+        seen = data_axis(mesh)
         act = _per_k_stats(outputs["pred_action_logits"], batch["a_h"],
-                           demo_len, "action", mesh=mesh)
-        report["avg_action_loss"] = act["loss"].mean()
-        report["avg_action_token_acc"] = act["token_acc"].mean()
-        report["avg_action_seq_acc"] = act["seq_acc"].mean()
+                           demo_len, "action", mesh=seen)
+        report["avg_action_loss"] = k_mean(act["loss"], mesh)
+        report["avg_action_token_acc"] = k_mean(act["token_acc"], mesh)
+        report["avg_action_seq_acc"] = k_mean(act["seq_acc"], mesh)
 
         per = _per_k_stats(outputs["pred_per_logits"], batch["per"],
-                           demo_len, "per", mesh=mesh)
-        report["avg_per_loss"] = per["loss"].mean()
+                           demo_len, "per", mesh=seen)
+        report["avg_per_loss"] = k_mean(per["loss"], mesh)
         loss = loss + report["avg_action_loss"] + report["avg_per_loss"]
 
     report["loss"] = loss

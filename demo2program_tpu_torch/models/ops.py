@@ -130,7 +130,14 @@ def batch_norm_eval(bn, x):
                       bn.running_var.to(dtype))
 
 
-class BNAct(nn.Module):
+class MeshModule(nn.Module):
+    """A module that reduces across the ranks of a data mesh: BatchNorm's
+    statistics, and the pooling over the k demos on a 2-D mesh. `mesh` is
+    the mesh of the forward in progress (`use_mesh`), None outside one."""
+    mesh = None
+
+
+class BNAct(MeshModule):
     """activation ('lrelu' | 'none') -> batch norm over dim 1 (the
     reference order). `train()` / `eval()` is the flax `train` field:
     batch statistics (updating the running ones) or running statistics."""
@@ -140,7 +147,6 @@ class BNAct(nn.Module):
         self.activation = activation
         bn_cls = nn.BatchNorm2d if spatial else nn.BatchNorm1d
         self.bn = bn_cls(features, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
-        self.mesh = None  # the data mesh of a train forward (batch_norm_mesh)
 
     def forward(self, x):
         if self.activation == "lrelu":
@@ -151,14 +157,16 @@ class BNAct(nn.Module):
 
 
 @contextlib.contextmanager
-def batch_norm_mesh(model, mesh):
-    """Inside the block, the train-mode BatchNorms of `model` take their
-    statistics over `mesh`'s global batch (the backward, which runs later,
-    keeps the group it was given). Nothing to do at world 1."""
+def use_mesh(model, mesh):
+    """Inside the block, the MeshModules of `model` reduce over `mesh`: the
+    train-mode BatchNorms take their statistics over its global batch, and
+    on a 2-D mesh the poolings over the k demos reach the demo group's (the
+    backward, which runs later, keeps the groups it was given). Nothing to
+    do at world 1."""
     if mesh is None or not mesh.distributed:
         yield
         return
-    layers = [m for m in model.modules() if isinstance(m, BNAct)]
+    layers = [m for m in model.modules() if isinstance(m, MeshModule)]
     for m in layers:
         m.mesh = mesh
     try:

@@ -26,9 +26,40 @@ per-replica losses: another function of the batch. Without a process group
 (world 1, no torchrun variables) every call here is the identity and the
 code path is the single-process one. Nothing falls back: a group that fails
 to form raises.
+
+The 2-D `data x demo` mesh (port of demo2program_tpu/parallel/mesh.py:55-85,
+`make_mesh_2d`, `shard_batch_2d`) also shards the k seen demos of each task:
+rank r is data index r // D and demo index r % D, and holds the rows of its
+data index and, of the seen-demo keys, the demos [j * k / D, (j + 1) * k /
+D) of its demo index j. Its `demo_group` is the D ranks of one data index
+(one task's demos between them), its `data_group` the dp ranks of one demo
+index; `group` stays the world. Whatever the demo group computes from
+every demo (the pooled summaries, the program and test-demo decoders and
+their losses) it computes replicated, and a replicated value behaves as a
+D-fold duplicate of the global rows. So the world reductions above keep
+the global value: BatchNorm's sums, the masked means' denominators and
+`batch_mean`'s row count all grow D-fold with their numerators, each
+replica's loss is 1/D of its rows' share, and each replica's gradient
+arrives at the demo-sharded values as 1/D, which the demo-group sum in the
+backward of `demo_sum` and `all_gather_demos` makes whole. Three kinds of
+reduction change:
+
+  * a mean over the k demos (the encoders' summaries, the baselines'
+    avgpool) is a demo-group `demo_sum` of the local sum over the GLOBAL k
+    (`demo_mean`); a pooling that needs every demo (RNPool's pairs, maxpool,
+    concat, the induction model's attention memory) gathers them first
+    (`all_gather_demos`);
+  * a per-demo term of the objective normalises each demo by its own mask
+    sum over the global batch: the rows of a demo index are spread over
+    its data group, so the denominators sum over the data group only
+    (`data_axis`), and the mean over k divides by the global k
+    (models/metrics.py:k_mean);
+  * the rows of the global batch are split over the dp data indices
+    (`shard_rows`), not over the world.
 """
 
 import dataclasses
+import math
 import os
 
 import numpy as np
@@ -40,16 +71,35 @@ from demo2program_tpu_torch.utils import log
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """This process's place in a 1-D data mesh: `rank` in [0, world) (None
+    """This process's place in a data mesh: `rank` in [0, world) (None
     for a process left outside a smaller mesh: it takes no step), the mesh
     size `world`, the `device` of its rows, and the process `group` of the
     mesh's ranks (None: world 1 without a process group, where every
-    reduction is the identity)."""
+    reduction is the identity). A 2-D `data x demo` mesh (make_mesh_2d)
+    has `demo_par` D > 1 demo indices, the process group of this rank's
+    demo index (`demo_group`, None at D 1) and of its data index
+    (`data_group`, None at dp 1); a 1-D mesh is the D = 1 case."""
     rank: object
     world: int
     device: torch.device
     group: object = None
     backend: object = None
+    demo_par: int = 1
+    demo_group: object = None
+    data_group: object = None
+
+    @property
+    def dp(self):
+        """The number of data indices (row shards)."""
+        return self.world // self.demo_par
+
+    @property
+    def data_rank(self):
+        return self.rank // self.demo_par
+
+    @property
+    def demo_rank(self):
+        return self.rank % self.demo_par
 
     @property
     def distributed(self):
@@ -99,6 +149,40 @@ def _default_backend(device):
     return "nccl" if device.type == "cuda" else "gloo"
 
 
+def _device(device):
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} asked for, but CUDA is not "
+                           f"available; pass --device cpu to run on the CPU")
+    return device
+
+
+def _process_group(backend, device, rank, world_size, init_method):
+    """The process group of make_mesh and make_mesh_2d (their docstrings),
+    formed here if there is none yet -> (device, backend, world, rank), or
+    None without a group and without torchrun's variables."""
+    device = _device(device)
+    if not dist.is_initialized():
+        env_world = os.environ.get("WORLD_SIZE")
+        if world_size is None and env_world is None:
+            return None
+        world_size = int(env_world if world_size is None else world_size)
+        rank = int(os.environ["RANK"] if rank is None else rank)
+        backend = backend or _default_backend(device)
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=rank, world_size=world_size)
+    elif backend is not None and backend != dist.get_backend():
+        raise ValueError(f"the process group runs {dist.get_backend()}, "
+                         f"{backend} asked for")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                         rank)))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device, dist.get_backend(), world, rank
+
+
 def make_mesh(num_devices=None, backend=None, device=None, *, rank=None,
               world_size=None, init_method=None):
     """The data mesh of this process.
@@ -114,33 +198,13 @@ def make_mesh(num_devices=None, backend=None, device=None, *, rank=None,
     card when the caller names it, e.g. "cuda:0"). `num_devices` (default:
     the whole world) cuts the mesh to ranks [0, num_devices); the other
     ranks get a mesh with rank None."""
-    device = torch.device(device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} asked for, but CUDA is not "
-                           f"available; pass --device cpu to run on the CPU")
-    if not dist.is_initialized():
-        env_world = os.environ.get("WORLD_SIZE")
-        if world_size is None and env_world is None:
-            if num_devices not in (None, 1):
-                raise ValueError(f"a {num_devices}-device mesh asked for, "
-                                 f"but no process group and no torchrun "
-                                 f"variables")
-            return DataMesh(0, 1, device)  # the single-process path
-        world_size = int(env_world if world_size is None else world_size)
-        rank = int(os.environ["RANK"] if rank is None else rank)
-        backend = backend or _default_backend(device)
-        dist.init_process_group(backend, init_method=init_method or "env://",
-                                rank=rank, world_size=world_size)
-    elif backend is not None and backend != dist.get_backend():
-        raise ValueError(f"the process group runs {dist.get_backend()}, "
-                         f"{backend} asked for")
-    backend = dist.get_backend()
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
-                                                         rank)))
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
+    formed = _process_group(backend, device, rank, world_size, init_method)
+    if formed is None:
+        if num_devices not in (None, 1):
+            raise ValueError(f"a {num_devices}-device mesh asked for, but "
+                             f"no process group and no torchrun variables")
+        return DataMesh(0, 1, _device(device))  # the single-process path
+    device, backend, world, rank = formed
     n = world if num_devices is None else num_devices
     if not 1 <= n <= world:
         raise ValueError(f"a {n}-device mesh asked for in a world of "
@@ -155,23 +219,96 @@ def make_mesh(num_devices=None, backend=None, device=None, *, rank=None,
                     group if inside else None, backend)
 
 
-def shard_rows(x, mesh, dim=0):
-    """The rank's rows [r * n / N, (r + 1) * n / N) of `x` (numpy array or
-    tensor) along `dim`: JAX's P("data") order."""
-    if mesh is None or mesh.world == 1:
-        return x
+def make_mesh_2d(dp, demo_par, backend=None, device=None, *, rank=None,
+                 world_size=None, init_method=None):
+    """The 2-D `data x demo` mesh of this process (JAX's make_mesh_2d:
+    the devices reshaped to (dp, demo_par)): rank r is data index r //
+    demo_par and demo index r % demo_par. The process group is taken or
+    formed as make_mesh does (same arguments); its world must be dp *
+    demo_par. Every rank forms every demo group (the ranks of one data
+    index), then every data group (the ranks of one demo index), in that
+    order, as dist.new_group asks; a group of one rank is not formed (None:
+    its reductions are the identity). Without a process group, dp *
+    demo_par must be 1: world 1, every call the identity."""
+    formed = _process_group(backend, device, rank, world_size, init_method)
+    if formed is None:
+        if dp * demo_par != 1:
+            raise ValueError(f"a {dp} x {demo_par} mesh asked for, but no "
+                             f"process group and no torchrun variables")
+        return DataMesh(0, 1, _device(device))
+    device, backend, world, rank = formed
+    if dp < 1 or demo_par < 1 or dp * demo_par != world:
+        raise ValueError(f"a {dp} x {demo_par} mesh asked for in a world of "
+                         f"{world} processes")
+
+    def groups(members):  # -> this rank's group among `members`
+        mine = None
+        for ranks in members:
+            if len(ranks) > 1:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine = g
+        return mine
+
+    demo_group = groups([[i * demo_par + j for j in range(demo_par)]
+                         for i in range(dp)])
+    data_group = groups([[i * demo_par + j for i in range(dp)]
+                         for j in range(demo_par)])
+    mesh = DataMesh(rank, world, device, dist.group.WORLD, backend, demo_par,
+                    demo_group, data_group)
+    log.info("data x demo mesh: rank %d of a %d-process %s group on %s, "
+             "%d x %d, data index %d, demo index %d", rank, world, backend,
+             device, dp, demo_par, mesh.data_rank, mesh.demo_rank)
+    return mesh
+
+
+def _shard(x, dim, n_shards, index, what):
     n = x.shape[dim]
-    if n % mesh.world:
-        raise ValueError(f"{n} rows do not split over {mesh.world} ranks")
-    per = n // mesh.world
-    index = [slice(None)] * x.ndim
-    index[dim] = slice(mesh.rank * per, (mesh.rank + 1) * per)
-    return x[tuple(index)]
+    if n % n_shards:
+        raise ValueError(f"{n} {what} do not split over {n_shards} ranks")
+    per = n // n_shards
+    sl = [slice(None)] * x.ndim
+    sl[dim] = slice(index * per, (index + 1) * per)
+    return x[tuple(sl)]
+
+
+def shard_rows(x, mesh, dim=0):
+    """The rank's rows [i * n / dp, (i + 1) * n / dp) of `x` (numpy array
+    or tensor) along `dim`, i its data index: JAX's P("data") order (on a
+    1-D mesh dp is the world and i the rank)."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    return _shard(x, dim, mesh.dp, mesh.data_rank, "rows")
 
 
 def shard_batch(batch, mesh):
     """The rank's rows of every array of a batch dict (ids too)."""
     return {k: shard_rows(v, mesh) for k, v in batch.items()}
+
+
+# the seen-demo keys, (bs, k, ...): sharded on both axes of a 2-D mesh;
+# every other key on the data axis only. The compact wire's keys are among
+# them, so the replay runs on the rank's demos (the JAX package's list,
+# demo2program_tpu/parallel/mesh.py:71-73).
+DEMO_AXIS_KEYS = ("s_h", "a_h", "a_h_tokens", "per", "demo_len",
+                  "init_pos", "init_pos_len",
+                  "c_wall", "c_marker", "c_agent", "c_a_raw")
+
+
+def shard_batch_2d(batch, mesh):
+    """The rank's part of a global batch dict on a 2-D mesh (JAX's
+    shard_batch_2d): the rows of its data index of every key (ids too),
+    and of the seen-demo keys its demos [j * k / D, (j + 1) * k / D), j its
+    demo index. Raises ValueError when the rows do not split over dp or
+    the demos over D."""
+    out = shard_batch(batch, mesh)
+    if mesh is None or mesh.demo_par == 1:
+        return out
+    for k in DEMO_AXIS_KEYS:
+        if k in out:
+            out[k] = _shard(out[k], 1, mesh.demo_par, mesh.demo_rank,
+                            f"demos of {k!r}")
+    return out
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -192,12 +329,83 @@ class _AllReduceSum(torch.autograd.Function):
         return grad, None
 
 
-def all_reduce_sum(t, mesh):
-    """Differentiable sum of `t` across the mesh's ranks (the identity
-    without a group)."""
+def all_reduce_sum(t, mesh, group=None):
+    """Differentiable sum of `t` across the ranks of `group` (default: the
+    mesh's world; the identity without one)."""
     if mesh is None or not mesh.distributed:
         return t
-    return _AllReduceSum.apply(t, mesh.group)
+    group = mesh.group if group is None else group
+    return _AllReduceSum.apply(t, group)
+
+
+def demo_sum(t, mesh):
+    """Differentiable sum of `t` across the rank's demo group (the identity
+    on a 1-D mesh)."""
+    if mesh is None or mesh.demo_group is None:
+        return t
+    return all_reduce_sum(t, mesh, mesh.demo_group)
+
+
+def demo_mean(x, mesh, dim=1):
+    """The mean of `x` over `dim` (an int or a tuple of dims) whose first
+    is the demo axis, holding the rank's k / D demos, and every other dim
+    whole: the demo group's sum of the local sums over the global count,
+    replicated across the demo group and differentiable (x.mean(dim) on a
+    1-D mesh)."""
+    if mesh is None or mesh.demo_group is None:
+        return x.mean(dim)
+    dims = (dim,) if isinstance(dim, int) else dim
+    count = math.prod(x.shape[d] for d in dims) * mesh.demo_par
+    return demo_sum(x.sum(dim), mesh) / count
+
+
+class _AllGatherDemos(torch.autograd.Function):
+    """The demo group's slices of `t` along `dim`, in demo-rank order; the
+    gradient of each rank's slice is its part of the sum of every rank's
+    output gradient. Each rank writes its slice into zeros of the gathered
+    shape and the group sums them (all_reduce takes CUDA tensors on gloo and
+    NCCL; adding zeros is exact)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, demo_rank, demo_par, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.part = slice(demo_rank * t.shape[dim],
+                         (demo_rank + 1) * t.shape[dim])
+        shape = list(t.shape)
+        shape[dim] *= demo_par
+        out = t.new_zeros(shape)
+        out.narrow(dim, ctx.part.start, t.shape[dim]).copy_(t)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return (grad.narrow(ctx.dim, ctx.part.start,
+                            ctx.part.stop - ctx.part.start),
+                None, None, None, None)
+
+
+def all_gather_demos(t, mesh, dim=1):
+    """Every demo of the rank's data index: the demo group's slices of `t`
+    along `dim`, in demo-rank order, on every rank of the group;
+    differentiable (the identity on a 1-D mesh)."""
+    if mesh is None or mesh.demo_group is None:
+        return t
+    return _AllGatherDemos.apply(t, dim, mesh.demo_rank, mesh.demo_par,
+                                 mesh.demo_group)
+
+
+def data_axis(mesh):
+    """The mesh of the data axis alone: on a 2-D mesh, the rank's data
+    group, the dp ranks that hold the same demos of other rows (a mesh of
+    world dp whose rank is the data index), over which a per-demo term of
+    the objective reduces; else `mesh`."""
+    if mesh is None or mesh.demo_par == 1:
+        return mesh
+    return DataMesh(mesh.data_rank, mesh.dp, mesh.device, mesh.data_group,
+                    mesh.backend)
 
 
 @torch.no_grad()

@@ -31,7 +31,8 @@ in step s come from a generator seeded with a pure function of (seed, s),
 so a resumed run draws what the uninterrupted one drew.
 
 Data parallelism (`mesh`, parallel/mesh.py): a rank's batch is its rows of
-the global batch, and the step computes what the single-process step
+the global batch (on a 2-D `data x demo` mesh, with its k / D of the seen
+demos: shard_batch_2d), and the step computes what the single-process step
 computes on the global batch, as the JAX step does over its data mesh:
 BatchNorm and the objective reduce over the global batch, the gradients
 are summed across the ranks in one flat bucket after backward (so
@@ -50,7 +51,7 @@ from torch.func import functional_call
 from demo2program_tpu_torch.models import objective
 from demo2program_tpu_torch.models.common import COMPUTE_DTYPES
 from demo2program_tpu_torch.models.decoder import gumbel, scheduled_noise
-from demo2program_tpu_torch.models.ops import batch_norm_mesh
+from demo2program_tpu_torch.models.ops import use_mesh
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.parallel.mesh import (
     all_reduce_gradients, global_report, shard_rows, world_of)
@@ -229,6 +230,11 @@ def compute_call(model, cfg, batch, **kwargs):
                            kwargs)
 
 
+def dp_of(mesh):
+    """The number of row shards of the global batch."""
+    return 1 if mesh is None else mesh.dp
+
+
 def forward_loss(model, cfg, batch, model_name, mesh=None, **kwargs):
     """Train-mode forward of a compact or expanded batch (dict of tensors on
     the model's device) -> (loss, report) of `model_name`'s objective, over
@@ -236,7 +242,7 @@ def forward_loss(model, cfg, batch, model_name, mesh=None, **kwargs):
     the model (scheduled sampling's sampling_prob and noise)."""
     model.train()
     batch = expand_batch(strip_non_tensor(batch), cfg)
-    with batch_norm_mesh(model, mesh):
+    with use_mesh(model, mesh):
         out = compute_call(model, cfg, batch, include_greedy=False, **kwargs)
     return objective.compute_loss(cfg, out, batch, model_name, mesh)
 
@@ -259,7 +265,7 @@ def make_train_step(state, cfg, model_name, seed=0, mesh=None):
                 device = next(state.model.parameters()).device
                 bs, L = batch["program_tokens"].shape
                 noise = tuple(shard_rows(t, mesh, dim=1) for t in (
-                    scheduled_noise(L, bs * world_of(mesh),
+                    scheduled_noise(L, bs * dp_of(mesh),
                                     cfg.dim_program_token, step_generator(
                                         seed, state.step, device), device)))
             kwargs = dict(sampling_prob=sampling_prob(cfg, state.step),

@@ -95,8 +95,8 @@ def karel_cfg(split):
     return config_from_dataset(_args(), split)
 
 
-def doom_cfg():
-    d = DOOM
+def doom_cfg(dims=None):
+    d = dims or DOOM
     return ModelConfig(
         model="full", dataset_type="vizdoom", batch_size=BS,
         num_lstm_cell_units=UNITS, k=d["k"], test_k=d["test_k"],
@@ -106,15 +106,17 @@ def doom_cfg():
 
 
 class StubDoomSplit:
-    """A ViZDoom split of DOOM_ITEMS random programs held as the readers'
-    `_store` (what both packages' DoomDeviceCache reads), made from a seed;
-    `dataset_path` None (the port's cache packs in memory) or a directory
-    with an empty data.hdf5 (the JAX cache's sidecar fingerprint)."""
+    """A ViZDoom split of DOOM_ITEMS random programs of the dimensions
+    `dims` (default DOOM) held as the readers' `_store` (what both
+    packages' DoomDeviceCache reads), made from a seed; `dataset_path` None
+    (the port's cache packs in memory) or a directory with an empty
+    data.hdf5 (the JAX cache's sidecar fingerprint)."""
 
     name = "stub"
 
-    def __init__(self, n=DOOM_ITEMS, seed=DOOM_SEED, dataset_path=None):
-        d, r = DOOM, np.random.RandomState(seed)
+    def __init__(self, n=DOOM_ITEMS, seed=DOOM_SEED, dataset_path=None,
+                 dims=None):
+        d, r = dims or DOOM, np.random.RandomState(seed)
         self.dataset_path = dataset_path
         self.num_k = self.num_demo = d["k"]
         self.test_k = d["test_k"]
@@ -182,14 +184,14 @@ def karel_batches(split, cfg):
 
 def run_steps(cfg, init_sd, batch_of, mesh=None, n_steps=N_STEPS,
               frozen=None):
-    """`n_steps` train steps of the full model from `init_sd` on
+    """`n_steps` train steps of cfg.model from `init_sd` on
     batch_of(step) (a dict of tensors: the rank's rows under `mesh`), the
     `frozen` elements ({name: mask}) reset to init_sd's before each step ->
     per step: report, gradients, state_dict."""
-    model = get_model_class("full")(cfg)
+    model = get_model_class(cfg.model)(cfg)
     model.load_state_dict(init_sd)
     state = TrainState(model, LR)
-    step = make_train_step(state, cfg, "full", mesh=mesh)
+    step = make_train_step(state, cfg, cfg.model, mesh=mesh)
     out = []
     for s in range(n_steps):
         with torch.no_grad():
@@ -299,13 +301,15 @@ def _rank_main(rank, world, init_file, job_path, out_dir):
         dist.destroy_process_group()
 
 
-def spawn(world, job, tmp):
-    """Start `job` on `world` gloo ranks -> finish(), which waits for them
-    and returns each rank's results."""
+def spawn(world, job, tmp, rank_main=_rank_main):
+    """Start `job` on `world` gloo ranks, each running `rank_main(rank,
+    world, init_file, job_path, out_dir)`, which saves its results to
+    <out_dir>/rank<r>.pt -> finish(), which waits for them and returns
+    each rank's results."""
     job_path = os.path.join(tmp, "job.pt")
     torch.save(job, job_path)
     ctx = mp.start_processes(
-        _rank_main, args=(world, os.path.join(tmp, "store"), job_path, tmp),
+        rank_main, args=(world, os.path.join(tmp, "store"), job_path, tmp),
         nprocs=world, join=False, start_method="spawn")
 
     def finish():
@@ -334,7 +338,7 @@ def jax_init(cfg, batch, seed):
     from tests.test_torch_models import _random_variables
 
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
-    variables = _random_variables(jaxcls("full")(jcfg, train=True),
+    variables = _random_variables(jaxcls(cfg.model)(jcfg, train=True),
                                   expand_batch_jax(batch, jcfg), seed)
     params, stats = variables["params"], variables["batch_stats"]
     state = JaxState(step=jnp.zeros((), jnp.int32), params=params,
@@ -350,8 +354,8 @@ def expand_batch_jax(batch, jcfg):
 
 
 def jax_mesh_step(cfg, n_dev):
-    """The JAX train step (make_train_step: jitted over the sharded batch)
-    and an n_dev-device CPU mesh."""
+    """The JAX train step of cfg.model (make_train_step: jitted over the
+    sharded batch) and an n_dev-device CPU mesh."""
     from demo2program_tpu.models.common import ModelConfig as JaxConfig
     from demo2program_tpu.models.registry import get_model_class as jaxcls
     from demo2program_tpu.parallel import make_mesh as jax_mesh
@@ -359,8 +363,8 @@ def jax_mesh_step(cfg, n_dev):
     from demo2program_tpu.train.step import make_train_step as jax_step
 
     jcfg = JaxConfig(**dataclasses.asdict(cfg))
-    return (jax_step(jaxcls("full")(jcfg, train=True), jcfg,
-                     make_optimizer(jcfg, LR), "full", donate=False),
+    return (jax_step(jaxcls(cfg.model)(jcfg, train=True), jcfg,
+                     make_optimizer(jcfg, LR), cfg.model, donate=False),
             jax_mesh(num_devices=n_dev))
 
 
@@ -385,9 +389,9 @@ def jax_mesh_first_step(step_and_mesh, state, batch):
 def gradients(cfg, init_sd, batch):
     """{parameter: the train objective's gradient on `batch` (tensors) from
     init_sd}, one process; zeros where no gradient reaches."""
-    model = get_model_class("full")(cfg)
+    model = get_model_class(cfg.model)(cfg)
     model.load_state_dict(init_sd)
-    loss, _ = forward_loss(model, cfg, batch, "full")
+    loss, _ = forward_loss(model, cfg, batch, cfg.model)
     loss.backward()
     return {n: torch.zeros_like(p) if p.grad is None else p.grad
             for n, p in model.named_parameters()}
