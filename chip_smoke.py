@@ -145,7 +145,11 @@ without them. It:
      ((160, 48), (16, 512), (400, 432), (400, 512)). On a machine with
      several cards the same runs over NCCL, a card a rank, beside the
      single-process step timed in the same call, and with four cards or
-     more Karel on the 2-D mesh below, a card a rank;
+     more Karel on the 2-D mesh below, a card a rank; then the dp bf16
+     phase: the same gloo world 2 with --compute_dtype bfloat16, 4 Karel
+     and 4 ViZDoom steps, each within BF16_TOL of the single process's
+     bf16 step from the same parameters, the replicas bitwise equal, 4 x
+     125 + 190 / 4 x 60 + 99 launches a rank, all on the bf16 entry;
  14. dp demo phase (the 2-D data x demo mesh, parallel/mesh.py:
      make_mesh_2d and shard_batch_2d, through the port's train step; gloo,
      every rank a spawned process on cuda:0): the Karel full model at dp 2
@@ -159,7 +163,18 @@ without them. It:
      demo group's, the data group's and the world's collectives and the
      gradients' all-reduce, beside the single process's step, with the
      card's name and power limit. The kernel phase also holds the kernel
-     at a rank's shapes ((80, 48), (80, 512), (160, 432));
+     at a rank's shapes ((80, 48), (80, 512), (160, 432)). Each spawn also
+     takes 4 bf16 steps under the same gates at BF16_TOL, all launches on
+     the bf16 entry. The Karel spawn also evaluates the train phase's
+     checkpoint on one global batch in greedy, beam (K = 5, then the
+     execution rerank), syntax_greedy and syntax_sample through the 2-D
+     eval step against the single process's eval step (190 launches a rank
+     a mode; report within 1e-4; token ids, lengths and rerank picks equal
+     on every row whose choices in the single process lie TIE_GAP clear of
+     a tie, at least a quarter of the batch), and takes one step from each
+     2-D batch source (KarelDeviceCache, BatchPipeline, DoomDeviceCache at
+     k 20) that must equal the step on shard_batch_2d of the same global
+     batch bit for bit;
  15. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
@@ -208,6 +223,7 @@ from demo2program_tpu_torch.data.vizdoom_generator import (
 from demo2program_tpu_torch.eval import evaler as evaler_module
 from demo2program_tpu_torch.eval.evaler import (
     Evaler, config_from_dataset, fetch_batch, save_checkpoint)
+from demo2program_tpu_torch.eval.scorer import KarelScorer
 from demo2program_tpu_torch.models import objective
 from demo2program_tpu_torch.models.common import COMPUTE_DTYPES
 from demo2program_tpu_torch.models.decoder import scheduled_noise
@@ -217,10 +233,11 @@ from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.ops import fused_lstm
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.parallel.mesh import (
-    all_reduce_gradients, gather_rows, make_mesh, make_mesh_2d,
+    all_reduce_gradients, data_axis, gather_rows, make_mesh, make_mesh_2d,
     shard_batch_2d)
 from demo2program_tpu_torch.tools import eval_execution
 from demo2program_tpu_torch.train import checkpoint
+from demo2program_tpu_torch.train import step as step_module
 from demo2program_tpu_torch.train.device_cache import (
     DoomDeviceCache, KarelDeviceCache)
 from demo2program_tpu_torch.train.step import (
@@ -977,21 +994,50 @@ def decode_evaler(split, ckpt, mode, batches):
     return Evaler(args, split, device=args.device)
 
 
-class TopKGaps:
-    """Wraps torch.topk while beam search runs: per row, the smallest gap
-    among the top K + 1 candidates of any step (the beam's choices and the
-    first one it dropped)."""
+class ChoiceGaps:
+    """Stands in for torch.argmax and torch.topk while a model decodes a
+    batch of `rows` programs: per row, the smallest gap of any
+    choice made over a (rows, ...) input (argmax: its top two; topk: among
+    the top k + 1, the choices and the first one dropped). The program
+    decoder's greedy, constrained and sampled ids and beam search's choices
+    are such calls; the action decoder's run over rows x k."""
 
-    def __init__(self):
-        self.gaps = None
-        self.original = torch.topk
+    def __init__(self, rows):
+        self.rows, self.gaps = rows, None
+        self._argmax, self._topk = torch.argmax, torch.topk
 
-    def __call__(self, x, k, dim=-1, **kw):
-        top = self.original(x, k + 1, dim=dim).values
-        gap = (top[:, :-1] - top[:, 1:]).min(dim=1).values
+    def _note(self, x, k, dim):
+        if x.dim() < 2 or x.shape[0] != self.rows or x.shape[dim] <= k:
+            return
+        top = self._topk(x.float(), k + 1, dim=dim).values
+        gap = (top.narrow(dim, 0, k) - top.narrow(dim, 1, k)).amin(dim=dim)
+        gap = gap.reshape(self.rows, -1).amin(dim=1)
         self.gaps = gap if self.gaps is None else torch.minimum(self.gaps,
                                                                 gap)
-        return self.original(x, k, dim=dim, **kw)
+
+    def argmax(self, x, dim=None, keepdim=False):
+        self._note(x, 1, -1 if dim is None else dim)
+        return self._argmax(x, dim=dim, keepdim=keepdim)
+
+    def topk(self, x, k, dim=-1, **kw):
+        self._note(x, k, dim)
+        return self._topk(x, k, dim=dim, **kw)
+
+    @contextlib.contextmanager
+    def patched(self):
+        """Inside the block, the model's forward (train/step.py:
+        compute_call) decodes under the stand-ins; the objective's own
+        argmax (over one-hot labels, zero past a program's end) is not a
+        choice."""
+        real = step_module.compute_call
+
+        def compute_call(*args, **kwargs):
+            with mock.patch.object(torch, "argmax", self.argmax), \
+                    mock.patch.object(torch, "topk", self.topk):
+                return real(*args, **kwargs)
+
+        with mock.patch.object(step_module, "compute_call", compute_call):
+            yield self
 
 
 def k1_beam_is_greedy(model, cfg, batch):
@@ -1040,8 +1086,8 @@ def beam_checks(evaler, split):
         out_k = model(expand_batch(batch, cfg), decode_mode="beam")
         cpu_model = FullModel(cfg)
         cpu_model.load_state_dict(model.state_dict())
-        gaps = TopKGaps()
-        with mock.patch.object(torch, "topk", gaps):
+        gaps = ChoiceGaps(BATCH)
+        with mock.patch.object(torch, "topk", gaps.topk):
             out_c = cpu_model.eval()(expand_batch(to_device(raw, "cpu"), cfg),
                                      decode_mode="beam")
     rows = gaps.gaps >= TIE_GAP
@@ -2167,6 +2213,19 @@ def data_phase(split, vizdoom_splits):
 DP_STEPS, DP_TIMING_STEPS = 10, 3
 DP_DEVICE = "cuda:0"  # of every rank (gloo takes two ranks on one card)
 DP_BACKENDS = ("nccl", "gloo")  # of the world-1 run and the world-2 runs
+# bf16 on the meshes: DP_BF16_STEPS steps a run, each within BF16_TOL of the
+# single process's bf16 step from the same parameters
+DP_BF16_STEPS = 4
+# the 2-D Doom cache's demos at dp 2 x demo 2: 25 do not split over 2
+SOURCE_VZD_K = 20
+
+
+def bf16_run(domain, **kw):
+    """A run of DP_BF16_STEPS bf16 steps of `domain` on a mesh, logged every
+    step."""
+    return dict(name=f"{domain}_bf16", dir=f"{domain}_bf16",
+                dataset_type=domain, steps=DP_BF16_STEPS, log_step=1,
+                flags=BF16_FLAGS, **kw)
 
 
 def _dp_rank(rank, world, backend, job_path, out_dir):
@@ -2339,11 +2398,13 @@ def single_step_times(cfg, model, batch, steps, learning_rate):
 
 def dp_args(out_dir, run, dataset_type="karel"):
     """trainer_args of a dp_phase run: run["steps"] a stage, a checkpoint
-    at its end, a log line every run["log_step"] steps."""
-    num_k = VZD_K if dataset_type == "vizdoom" else None
+    at its end, a log line every run["log_step"] steps, run["num_k"] demos
+    (default the domain's), run["flags"] added."""
+    num_k = run.get("num_k") or (VZD_K if dataset_type == "vizdoom"
+                                  else None)
     return trainer_args(os.path.join(out_dir, run["dir"]), run["steps"],
                         run["log_step"], dataset_type=dataset_type,
-                        num_k=num_k)
+                        num_k=num_k, extra_flags=run.get("flags", ()))
 
 
 def spawn_ranks(world, backend, job, tag, device=None, rank_main=None):
@@ -2391,17 +2452,19 @@ def single_reference(split, dataset_type, train_dir, rows=None):
     return train_rows(train_dir)
 
 
-def dp_against_single(tag, dp, dp_dir, single=None):
+def dp_against_single(tag, dp, dp_dir, single=None, tol=F32_TOL,
+                      n_steps=DP_STEPS):
     """The dp run (rank 0's `dp` results and metrics, global values)
-    against the single process: each step's loss (LOSS_ATOL) and grad norm
-    (NORM_RTOL) against the single process's step from the same parameters
+    against the single process: each of its `n_steps` steps' loss
+    (tol["loss_atol"]) and grad norm (tol["norm_rtol"]) against the single
+    process's step (in the run's compute dtype) from the same parameters
     on the same global batch, gated; against the independent single-process
     run `single` (its metrics rows), a reading."""
     steps = dp["steps"]
     loss = [abs(x["loss"] - x["single"]["loss"]) for x in steps]
     norm = [abs(x["grad_norm"] - x["single"]["grad_norm"])
             / x["single"]["grad_norm"] for x in steps]
-    check(len(steps) == DP_STEPS, f"{tag}: {len(steps)} steps compared")
+    check(len(steps) == n_steps, f"{tag}: {len(steps)} steps compared")
     res = {"step_loss_abs_diff": loss, "step_grad_norm_rel_diff": norm,
            "loss": [x["loss"] for x in steps]}
     if single is not None:
@@ -2414,10 +2477,10 @@ def dp_against_single(tag, dp, dp_dir, single=None):
             abs(rows[s]["grad_norm"] - single[s]["grad_norm"])
             / single[s]["grad_norm"] for s in sorted(rows)]
     print(f"dp {tag} vs single process " + json.dumps(res), flush=True)
-    check(max(loss) <= LOSS_ATOL, f"{tag}: a step's loss differs from the "
-          f"single process's step by {max(loss)}")
-    check(max(norm) <= NORM_RTOL, f"{tag}: a step's grad norm differs from "
-          f"the single process's step by {max(norm)} of it")
+    check(max(loss) <= tol["loss_atol"], f"{tag}: a step's loss differs "
+          f"from the single process's step by {max(loss)}")
+    check(max(norm) <= tol["norm_rtol"], f"{tag}: a step's grad norm "
+          f"differs from the single process's step by {max(norm)} of it")
     return res
 
 
@@ -2520,6 +2583,35 @@ def dp_phase(split, vizdoom_splits, train_ckpt):
     return res
 
 
+def dp_bf16_phase(split, vz_train):
+    """bf16 compute on the 1-D mesh (--compute_dtype bfloat16 through the
+    Trainer, as dp_phase's gloo runs): world DP_WORLD, both ranks on
+    cuda:0, DP_BF16_STEPS Karel and ViZDoom steps; each step's loss and
+    grad norm within BF16_TOL of the single process's bf16 step from the
+    same parameters on the same global batch, the replicas bitwise equal
+    after every step, 125 / 60 launches a rank a step and a test sample's
+    190 / 99, every one on the kernel's bf16 entry."""
+    runs = [bf16_run(d, reference=True) for d in ("karel", "vizdoom")]
+    ranks, _ = spawn_ranks(DP_WORLD, DP_BACKENDS[1], {
+        "karel": split, "vizdoom": vz_train, "runs": runs}, "dp_bf16")
+    res = {"card": CARD, "world": DP_WORLD, "backend": DP_BACKENDS[1],
+           "launches_per_rank": check_dp_ranks(
+               ranks, {run["name"]: DP_BF16_STEPS for run in runs},
+               DP_WORLD, DP_BACKENDS[1])}
+    for run in runs:
+        name = run["name"]
+        for r in ranks:
+            got = r[name]
+            on_entry = got["launches_by_dtype"].get(str(torch.bfloat16), 0)
+            check(on_entry == got["launches"], f"dp bf16 {name}: "
+                  f"{on_entry} of {got['launches']} launches on the bf16 "
+                  f"entry")
+        res[name] = dp_against_single(f"bf16 {name}", ranks[0][name], None,
+                                      tol=BF16_TOL, n_steps=DP_BF16_STEPS)
+    print("dp bf16 " + json.dumps(res), flush=True)
+    return res
+
+
 def dp_cards_phase(split, vz_train):
     """Data parallelism over every card of the machine, one NCCL rank a
     card (cuda:<rank>), when it has more than one: DP_STEPS Karel and
@@ -2555,7 +2647,7 @@ def dp_cards_phase(split, vz_train):
           + json.dumps(res["single_step_s"]), flush=True)
     if world >= 4:  # the 2-D mesh, a card a rank
         res["demo_mesh"] = demo_spawn("karel", split, "nccl", device="cuda",
-                                      tag="dp_cards_demo_karel")
+                                      tag="dp_cards_demo_karel")[0]
     print("dp cards " + json.dumps(res), flush=True)
     return res
 
@@ -2571,22 +2663,25 @@ def _demo_rank(rank, world, backend, job_path, out_dir):
                         rank=rank, world_size=world,
                         init_method=f"file://{job['store']}")
     try:
-        out = {run["name"]: demo_run(job, run, mesh) for run in job["runs"]}
+        out = {run["name"]: DEMO_RUNS[run.get("kind", "train")](job, run,
+                                                               mesh)
+               for run in job["runs"]}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def demo_run(job, run, mesh):
-    """DP_STEPS steps of the port's train step (make_train_step over the
-    2-D `mesh`) of a full model at full width drawn from SEED, each on the
-    rank's part (shard_batch_2d) of the step's global batch: the draw of an
-    unsharded device cache, compact with run["compact"] (the replay runs on
-    the rank's demos), else expanded -> the mesh, the launches, the
-    replicas' equality after every step, on rank 0 each step against the
-    single process's step from the same parameters on the same global batch
-    (the launches of that comparison do not count), and with run["timed"]
-    the step's phase times beside the single process's."""
+    """run["steps"] steps of the port's train step (make_train_step over
+    the 2-D `mesh`, in the compute dtype of run["flags"]) of a full model at
+    full width drawn from SEED, each on the rank's part (shard_batch_2d) of
+    the step's global batch: the draw of an unsharded device cache, compact
+    with run["compact"] (the replay runs on the rank's demos), else
+    expanded -> the mesh, the launches (by dtype), the replicas' equality
+    after every step, on rank 0 each step against the single process's
+    step from the same parameters on the same global batch (the launches
+    of that comparison do not count), and with run["timed"] the step's
+    phase times beside the single process's."""
     args = run["args"]
     split = job[args.dataset_type]
     cfg = config_from_dataset(args, split)
@@ -2608,7 +2703,7 @@ def demo_run(job, run, mesh):
         return batch if run.get("compact") else expand_batch(batch, cfg)
 
     fused_lstm.reset_launches()
-    for s in range(DP_STEPS):
+    for s in range(run["steps"]):
         batch = global_batch(s)
         local = {k: v.contiguous()
                  for k, v in shard_batch_2d(batch, mesh).items()}
@@ -2622,6 +2717,9 @@ def demo_run(job, run, mesh):
         out["replicas_equal"].append(replicas_equal(model, mesh))
     synchronize(device)
     out["launches"] = fused_lstm.fused_lstm_step.launches
+    out["on_entry"] = fused_lstm.fused_lstm_step.launches_by_dtype[
+        COMPUTE_DTYPES[cfg.compute_dtype]]
+    out["compute_dtype"], out["n_steps"] = cfg.compute_dtype, run["steps"]
     out["per_step"], _ = lstm_launches(cfg)
     out["local_k"] = local["demo_len"].shape[1]
     if run.get("timed"):
@@ -2632,6 +2730,204 @@ def demo_run(job, run, mesh):
                 cfg, model, batch, job["timing_steps"], args.learning_rate)
         mesh.barrier()
     return out
+
+
+# the 2-D eval: the decode modes of the train phase's checkpoint on one
+# global batch, and which evals of each are token ids
+EVAL_2D_MODES = ("greedy", "beam", "syntax_greedy", "syntax_sample")
+EVAL_2D_TOKENS = {"greedy": ("greedy_tokens", "greedy_len"),
+                  "beam": ("beam_tokens", "beam_lengths"),
+                  "syntax_greedy": ("greedy_tokens", "greedy_len"),
+                  "syntax_sample": ("greedy_tokens", "greedy_len")}
+EVAL_2D_ATOL = 1e-4  # the report, 2-D against one process, f32
+
+
+def eval_2d_run(job, run, mesh):
+    """The port's eval step (make_eval_step over the 2-D `mesh`) of the
+    full model at job["checkpoint"] on the rank's part of one global Karel
+    batch, in each of EVAL_2D_MODES (beam: K = BEAM_WIDTH, then the
+    execution rerank on the global batch) -> per mode its launches, report
+    and token ids gathered over the data index; on rank 0 also the single
+    process's eval step on the global batch (launches uncounted), the
+    smallest gap of each row's choices there (ChoiceGaps) and both reranks'
+    picks."""
+    split = job["karel"]
+    cfg = dataclasses.replace(config_from_dataset(run["args"], split),
+                              beam_width=BEAM_WIDTH)
+    device = mesh.device
+    model = get_model_class("full")(cfg)
+    model.load_state_dict(checkpoint.load(job["checkpoint"])["model"])
+    model.to(device)
+    raw = split.get_batch_compact(split.ids[:BATCH])
+    batch = to_device(raw, device)
+    local = {k: v.contiguous() for k, v in shard_batch_2d(batch, mesh).items()}
+    scorer = KarelScorer(cfg, device)
+    rows = data_axis(mesh)
+    out = {"mesh": (mesh.world, mesh.dp, mesh.demo_par, mesh.backend),
+           "rank": mesh.rank, "per_batch": lstm_launches(cfg)[1]}
+
+    def picks(evals):
+        order = np.argsort(-evals["beam_scores"], axis=1, kind="stable")
+        bt = np.take_along_axis(evals["beam_tokens"], order[:, :, None], 1)
+        bl = np.take_along_axis(evals["beam_lengths"].astype(np.int32),
+                                order, axis=1)
+        return scorer.rerank_pick(bt, bl, batch)
+
+    def host(report, evals):
+        return ({k: float(v) for k, v in report.items()},
+                {k: v.cpu().numpy() for k, v in evals.items() if v.dim()})
+
+    for mode in EVAL_2D_MODES:
+        fused_lstm.reset_launches()
+        report, evals = make_eval_step(model, cfg, "full", decode_mode=mode,
+                                       mesh=mesh)(local)
+        evals = {k: gather_rows(v, rows) for k, v in evals.items()
+                 if v.dim()}
+        synchronize(device)
+        res = {"launches": fused_lstm.fused_lstm_step.launches}
+        res["report"], evals = host(report, evals)
+        res["tokens"] = {k: evals[k] for k in EVAL_2D_TOKENS[mode]}
+        if mesh.rank == 0:
+            gaps = ChoiceGaps(BATCH)
+            with gaps.patched():
+                single = uncounted(make_eval_step(model, cfg, "full",
+                                                  decode_mode=mode), batch)
+            res["single_report"], single = host(*single)
+            res["single_tokens"] = {k: single[k]
+                                    for k in EVAL_2D_TOKENS[mode]}
+            res["gaps"] = gaps.gaps.cpu().numpy()
+            if mode == "beam":
+                res["picks"], res["single_picks"] = picks(evals), picks(
+                    single)
+        out[mode] = res
+    return out
+
+
+def check_eval_2d(ranks):
+    """The 2-D eval of every mode: each rank's launches one batch's 190
+    (5 T + 2 L at the rank's rows), the ranks' reports and token ids equal;
+    rank 0's report within EVAL_2D_ATOL of the single process's, and on the
+    rows whose every choice there lies TIE_GAP clear of a tie (at least a
+    quarter of the batch) the token ids and the rerank's picks equal ->
+    per mode the launches per rank and the distances."""
+    res = {}
+    for mode in EVAL_2D_MODES:
+        for r in ranks:
+            got = r[mode]
+            check(got["launches"] == r["per_batch"],
+                  f"eval 2-D {mode} rank {r['rank']}: {got['launches']} "
+                  f"launches, expected {r['per_batch']}")
+            check(got["report"] == ranks[0][mode]["report"] and all(
+                np.array_equal(v, ranks[0][mode]["tokens"][k])
+                for k, v in got["tokens"].items()),
+                  f"eval 2-D {mode}: rank {r['rank']} differs from rank 0")
+        first = ranks[0][mode]
+        report_err = max(abs(v - first["single_report"][k])
+                         for k, v in first["report"].items())
+        clear = first["gaps"] >= TIE_GAP
+        n_rows = int(clear.sum())
+        mismatch = sum(int((~np.equal(v, first["single_tokens"][k]).reshape(
+            BATCH, -1).all(axis=1) & clear).sum())
+            for k, v in first["tokens"].items())
+        res[mode] = {"launches_per_rank": [r[mode]["launches"]
+                                           for r in ranks],
+                     "report_max_abs_diff": report_err,
+                     "rows_compared": n_rows, "token_mismatch_rows": mismatch}
+        if mode == "beam":
+            res[mode]["pick_mismatch_rows"] = int(
+                ((first["picks"] != first["single_picks"]) & clear).sum())
+            mismatch += res[mode]["pick_mismatch_rows"]
+        check(set(first["report"]) == set(first["single_report"])
+              and report_err <= EVAL_2D_ATOL, f"eval 2-D {mode}: the report "
+              f"differs from the single process's by {report_err}")
+        check(n_rows >= BATCH // 4, f"eval 2-D {mode}: only {n_rows} of "
+              f"{BATCH} rows have every choice {TIE_GAP} clear of a tie")
+        check(mismatch == 0, f"eval 2-D {mode}: {mismatch} rows clear of "
+              f"ties decode otherwise than in one process")
+    print("eval 2-D " + json.dumps(res), flush=True)
+    return res
+
+
+def sources_2d_run(job, run, mesh):
+    """One train step from each 2-D batch source at step 0 (KarelDeviceCache
+    and BatchPipeline on the Karel split, DoomDeviceCache on the ViZDoom
+    split at SOURCE_VZD_K demos), each against the 2-D step from the same
+    parameters on shard_batch_2d of the same global batch (an unsharded
+    source's; for the Doom cache its global rows gathered from an
+    unsharded cache) -> per source whether the batches, the reports and the
+    parameters after the step are equal bit for bit."""
+    device, seed = mesh.device, run["args"].seed
+    out = {"rank": mesh.rank}
+    for name, dataset in (("karel_cache", job["karel"]),
+                          ("pipeline", job["karel"]),
+                          ("doom_cache", job["vizdoom"])):
+        doom = name == "doom_cache"
+        args = trainer_args(run["args"].train_dir, 1, 1,
+                            dataset_type="vizdoom" if doom else "karel",
+                            num_k=SOURCE_VZD_K if doom else None)
+        cfg = config_from_dataset(args, dataset)
+        if name == "karel_cache":
+            got = KarelDeviceCache(dataset, device, BATCH, seed,
+                                   mesh=mesh).batch(0)
+            want = KarelDeviceCache(dataset, device, BATCH, seed).batch(0)
+        elif name == "pipeline":
+            pipes = [BatchPipeline(dataset, BATCH, device, seed=seed,
+                                   compact=True, mesh=m) for m in (mesh, None)]
+            got, want = (next(p) for p in pipes)
+            for p in pipes:
+                p.close()
+            got, want = ({k: v for k, v in b.items() if k != "id"}
+                         for b in (got, want))
+        else:
+            cache = DoomDeviceCache(dataset, device, BATCH, seed, mesh=mesh)
+            got = cache.batch(0)
+            whole = DoomDeviceCache(dataset, device, BATCH, seed)
+            rows = torch.as_tensor(np.concatenate(cache.draws(0)[1]),
+                                   device=device)
+            want = {k: v.index_select(0, rows) for k, v in whole.data.items()}
+            del whole
+        want = {k: v.contiguous()
+                for k, v in shard_batch_2d(want, mesh).items()}
+        same_batch = set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) for k in want)
+        states = []
+        for batch in (got, want):
+            model = get_model_class("full")(cfg)
+            init_parameters(model, torch.Generator().manual_seed(SEED))
+            model.to(device)
+            state = TrainState(model, args.learning_rate)
+            report = make_train_step(state, cfg, "full", mesh=mesh)(batch)
+            states.append(({k: v.item() for k, v in report.items()},
+                           model.state_dict()))
+        synchronize(device)
+        (r_got, sd_got), (r_want, sd_want) = states
+        out[name] = {"batch_equal": same_batch, "report_equal":
+                     r_got == r_want, "params_equal": all(
+                         torch.equal(v, sd_want[k])
+                         for k, v in sd_got.items()),
+                     "local_k": int(got["demo_len"].shape[1]),
+                     "rows": int(got["demo_len"].shape[0])}
+    return out
+
+
+def check_sources_2d(ranks):
+    """Every rank's batch of each 2-D source equals shard_batch_2d of its
+    global batch bit for bit, and so do the report and the parameters
+    after one step on it."""
+    for r in ranks:
+        for name in ("karel_cache", "pipeline", "doom_cache"):
+            got = r[name]
+            check(got["batch_equal"] and got["report_equal"]
+                  and got["params_equal"], f"source 2-D {name} rank "
+                  f"{r['rank']}: {got}")
+    res = {name: {k: ranks[0][name][k] for k in ("local_k", "rows")}
+           for name in ("karel_cache", "pipeline", "doom_cache")}
+    print("sources 2-D " + json.dumps(res), flush=True)
+    return res
+
+
+DEMO_RUNS = {"train": demo_run, "eval": eval_2d_run,
+             "sources": sources_2d_run}
 
 
 def mesh_step_times(state, cfg, batch, mesh, steps):
@@ -2684,31 +2980,39 @@ def mesh_step_times(state, cfg, batch, mesh, steps):
     return {k: float(np.median([r[k] for r in runs[1:]])) for k in runs[0]}
 
 
-def check_demo_ranks(tag, ranks, world, dp, demo_par, backend):
-    """Every rank of every run of a dp_demo_phase spawn: the mesh, the
-    replicas bitwise equal after each step, DP_STEPS x (4 T + L) launches
-    and its k / D demos; rank 0's steps against the single process's
-    (dp_against_single's gate) -> {run: launches per rank, the comparison,
-    the step's times}."""
+def check_demo_ranks(tag, ranks, world, dp, demo_par, backend, names):
+    """Every rank of the train runs `names` of a dp_demo_phase spawn: the
+    mesh, the replicas bitwise equal after each step, steps x (4 T + L)
+    launches, every one on the entry of the run's compute dtype, and its
+    k / D demos; rank 0's steps against the single process's
+    (dp_against_single's gate at the dtype's STEP_TOL) -> {run: launches
+    per rank, the comparison, the step's times}."""
     res = {}
-    for name in ranks[0]:
+    for name in names:
         for r in ranks:
             got = r[name]
+            n = got["n_steps"]
             check(got["mesh"] == (world, dp, demo_par, backend),
                   f"{tag} {name}: mesh {got['mesh']}")
-            check(len(got["replicas_equal"]) == DP_STEPS
+            check(len(got["replicas_equal"]) == n
                   and all(got["replicas_equal"]),
                   f"{tag} {name}: the replicas differ after a step "
                   f"{got['replicas_equal']}")
-            want = DP_STEPS * got["per_step"]
-            check(got["launches"] == want,
+            want = n * got["per_step"]
+            check(got["launches"] == want == got["on_entry"],
                   f"{tag} {name} rank {got['rank']}: {got['launches']} "
-                  f"launches, expected {DP_STEPS} x {got['per_step']}")
+                  f"launches ({got['on_entry']} on the "
+                  f"{got['compute_dtype']} entry), expected {n} x "
+                  f"{got['per_step']}")
         first = ranks[0][name]
         res[name] = {
             "launches_per_rank": [r[name]["launches"] for r in ranks],
             "per_step": first["per_step"], "local_k": first["local_k"],
-            "vs_single": dp_against_single(f"{tag} {name}", first, None)}
+            "compute_dtype": first["compute_dtype"],
+            "vs_single": dp_against_single(
+                f"{tag} {name}", first, None,
+                tol=STEP_TOL[first["compute_dtype"]],
+                n_steps=first["n_steps"])}
         if "step_s" in first:
             res[name]["step_s"] = first["step_s"]
             res[name]["single_step_s"] = first["single_step_s"]
@@ -2721,10 +3025,13 @@ def check_demo_ranks(tag, ranks, world, dp, demo_par, backend):
     return res
 
 
-def demo_spawn(domain, data, backend, device=None, tag=None):
+def demo_spawn(domain, data, backend, device=None, tag=None, extra=(),
+               job=None):
     """dp_demo_phase's runs of `domain` on its DEMO_MESHES mesh: Karel on
     expanded and on compact batches, ViZDoom on expanded ones, the first
-    timed -> check_demo_ranks' results."""
+    timed, then the `extra` runs (`job`'s entries added to the job) ->
+    (check_demo_ranks' results of the train runs, {run: each rank's
+    results} of every other run)."""
     dp, demo_par = DEMO_MESHES[domain]
     runs = [dict(name=domain, dir=domain, dataset_type=domain,
                  steps=DP_STEPS, log_step=1, timed=True)]
@@ -2732,27 +3039,50 @@ def demo_spawn(domain, data, backend, device=None, tag=None):
         runs.append(dict(name="karel_compact", dir="karel_compact",
                          dataset_type="karel", steps=DP_STEPS, log_step=1,
                          compact=True))
+    runs += list(extra)
     tag = tag or f"dp_demo_{domain}"
-    ranks, _ = spawn_ranks(dp * demo_par, backend, {
-        "mesh": (dp, demo_par), domain: data, "runs": runs}, tag,
+    ranks, _ = spawn_ranks(dp * demo_par, backend, dict(
+        job or {}, mesh=(dp, demo_par), **{domain: data}, runs=runs), tag,
         device=device, rank_main=_demo_rank)
-    return check_demo_ranks(tag, ranks, dp * demo_par, dp, demo_par, backend)
+    trains = [r["name"] for r in runs if r.get("kind", "train") == "train"]
+    res = check_demo_ranks(tag, ranks, dp * demo_par, dp, demo_par, backend,
+                           trains)
+    others = {r["name"]: [rank[r["name"]] for rank in ranks]
+              for r in runs if r["name"] not in trains}
+    return res, others
 
 
-def dp_demo_phase(split, vz_train):
+def dp_demo_phase(split, vz_train, train_ckpt):
     """The 2-D data x demo mesh on the card (parallel/mesh.py:make_mesh_2d,
-    shard_batch_2d, through the port's train step, as JAX's dry run drives
-    its 2-D mesh), gloo with every rank on cuda:0 (NCCL takes one card a
-    rank): Karel's full model at dp 2 x demo 2 (world 4), DP_STEPS steps on
-    expanded batches and DP_STEPS on the compact wire; ViZDoom's at dp 1 x
-    demo 5 (world 5), DP_STEPS steps. Each step within LOSS_ATOL /
-    NORM_RTOL of the single process's step from the same parameters, the
-    replicas bitwise equal after every step, 125 / 60 launches a rank a
-    step, and the step's time split into compute, the collectives by group
-    and the gradients' all-reduce."""
+    shard_batch_2d, through the port's train and eval steps, as JAX's dry
+    run drives its 2-D mesh), gloo with every rank on cuda:0 (NCCL takes
+    one card a rank): Karel's full model at dp 2 x demo 2 (world 4),
+    DP_STEPS steps on expanded batches and DP_STEPS on the compact wire;
+    ViZDoom's at dp 1 x demo 5 (world 5), DP_STEPS steps; each domain also
+    DP_BF16_STEPS bf16 steps. Each step within the dtype's STEP_TOL of the
+    single process's step from the same parameters, the replicas bitwise
+    equal after every step, 125 / 60 launches a rank a step, and the f32
+    step's time split into compute, the collectives by group and the
+    gradients' all-reduce. In the Karel spawn also the eval step of the
+    train phase's checkpoint in every decode mode (eval_2d_run) and one
+    step from each 2-D batch source (sources_2d_run)."""
     res = {"card": CARD, "backend": DP_BACKENDS[1]}
-    res.update(demo_spawn("karel", split, DP_BACKENDS[1]))
-    res.update(demo_spawn("vizdoom", vz_train, DP_BACKENDS[1]))
+    karel, others = demo_spawn(
+        "karel", split, DP_BACKENDS[1], extra=[
+            bf16_run("karel"),
+            dict(name="eval_2d", dir="eval_2d", dataset_type="karel",
+                 kind="eval", steps=1, log_step=1),
+            dict(name="sources_2d", dir="sources_2d", dataset_type="karel",
+                 kind="sources", steps=1, log_step=1)],
+        job={"checkpoint": train_ckpt,
+             "vizdoom": vz_train.subset(vz_train.ids, "train",
+                                        SOURCE_VZD_K)})
+    res.update(karel)
+    res["eval_2d"] = check_eval_2d(others["eval_2d"])
+    res["sources_2d"] = check_sources_2d(others["sources_2d"])
+    vizdoom, _ = demo_spawn("vizdoom", vz_train, DP_BACKENDS[1],
+                            extra=[bf16_run("vizdoom")])
+    res.update(vizdoom)
     print("dp demo " + json.dumps(res), flush=True)
     return res
 
@@ -2817,7 +3147,9 @@ def main():
     bf16 = timed("bf16", bf16_phase, split, vizdoom_splits)
     data = timed("data", data_phase, split, vizdoom_splits)
     dp = timed("dp", dp_phase, split, vizdoom_splits, train["checkpoint"])
-    dp_demo = timed("dp demo", dp_demo_phase, split, vizdoom_splits[0])
+    dp_bf16 = timed("dp bf16", dp_bf16_phase, split, vizdoom_splits[0])
+    dp_demo = timed("dp demo", dp_demo_phase, split, vizdoom_splits[0],
+                    train["checkpoint"])
     if torch.cuda.device_count() > 1:  # NCCL takes a card a rank
         timed("dp cards", dp_cards_phase, split, vizdoom_splits[0])
     print(f"phase all: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
@@ -2851,8 +3183,13 @@ def main():
             "dp_gloo_karel_train_per_rank": dp["karel_launches_per_rank"],
             "dp_gloo_vizdoom_train_per_rank":
                 dp["vizdoom_launches_per_rank"],
+            **{f"dp_gloo_{n}_train_per_rank": v for n, v in
+               dp_bf16["launches_per_rank"].items()},
             **{f"dp_demo_{n}_train_per_rank": dp_demo[n]["launches_per_rank"]
-               for n in ("karel", "karel_compact", "vizdoom")}},
+               for n in ("karel", "karel_compact", "vizdoom", "karel_bf16",
+                         "vizdoom_bf16")},
+            **{f"dp_demo_eval_{m}_per_rank": r["launches_per_rank"]
+               for m, r in dp_demo["eval_2d"].items()}},
         "shapes": [dict(r, **contract(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,10 @@ Under a data mesh (parallel/mesh.py) every rank walks the global id stream
 of `batch_size` ids a batch and makes and ships only its own rows of each
 batch, [r * bs / N, (r + 1) * bs / N), as the JAX pipeline's sharded
 device_put leaves each chip its rows (demo2program_tpu/data/pipeline.py:
-108-119).
+108-119). On a 2-D `data x demo` mesh those are the rows of its data index,
+and the worker cuts the seen-demo keys to the rank's demos before the
+pinned copy: shard_batch_2d of the global batch, a D-th of the demos'
+bytes shipped.
 """
 
 import threading
@@ -35,7 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from demo2program_tpu_torch.parallel.mesh import shard_rows
+from demo2program_tpu_torch.parallel.mesh import shard_demos, shard_rows
 from demo2program_tpu_torch.train.step import NON_TENSOR_KEYS
 
 
@@ -48,7 +51,8 @@ class BatchPipeline:
     shuffle=False -> one epoch in order (eval), dropping the ragged tail
     like the reference's fixed `max_steps = len(ids) // batch_size`
     (`evaler.py:448-449`). `batch_size` is the global batch's; with a data
-    `mesh` a batch holds the rank's rows of it.
+    `mesh` a batch holds the rank's part of it (its rows, and on a 2-D
+    mesh its demos).
     """
 
     def __init__(self, dataset, batch_size, device, shuffle=True, seed=0,
@@ -109,8 +113,9 @@ class BatchPipeline:
             host = self.dataset.get_batch_compact(id_batch)
         else:
             host = self.dataset.get_batch(id_batch)
-        return self._ship({k: v for k, v in host.items()
-                           if k not in self.drop_keys})
+        return self._ship(shard_demos({k: v for k, v in host.items()
+                                       if k not in self.drop_keys},
+                                      self.mesh))
 
     def _ship(self, batch):
         """numpy batch -> (batch of tensors on the device, the event that

@@ -14,9 +14,10 @@ eval/scorer.py. With a data `mesh` every batch reduction is over the global
 batch and every scalar is the rank's partial sum (models/metrics.py): the
 local losses sum over the ranks to the single-process loss. On a 2-D mesh
 the seen demos' per-demo terms (the full model's action and perception
-heads) reduce over the data axis and divide by the global k; the program
-and the induction model's test demos are replicated across the demo group
-and reduce over the world like every other term (parallel/mesh.py).
+heads, and in eval its greedy action decoder's) reduce over the data axis
+and divide by the global k; the program and the induction model's test
+demos are replicated across the demo group and reduce over the world like
+every other term (parallel/mesh.py).
 """
 
 import torch
@@ -153,14 +154,17 @@ def greedy_action_report(cfg, outputs, batch, model_name, mesh=None):
     induction = model_name == "induction_baseline"
     gt, lens = ((batch["test_a_h"], batch["test_demo_len"]) if induction
                 else (batch["a_h"], batch["demo_len"]))
+    # the test demos are whole on every rank; the seen demos are the rank's
+    # k / D on a 2-D mesh and reduce as compute_loss's do
+    seen = None if induction else mesh
     stats = _per_k_stats(outputs["greedy_action_logits"], gt, lens.long(),
                          "action",
                          pred_len=outputs["greedy_action_len"].long(),
-                         mesh=mesh)
+                         mesh=mesh if induction else data_axis(mesh))
     report = {
-        "greedy_avg_action_loss": stats["loss"].mean(),
-        "greedy_avg_action_token_acc": stats["token_acc"].mean(),
-        "greedy_avg_action_seq_acc": stats["seq_acc"].mean(),
+        "greedy_avg_action_loss": k_mean(stats["loss"], seen),
+        "greedy_avg_action_token_acc": k_mean(stats["token_acc"], seen),
+        "greedy_avg_action_seq_acc": k_mean(stats["seq_acc"], seen),
     }
     if induction:
         report["greedy_avg_action_seq_all_acc"] = _all_k_match(stats, mesh)

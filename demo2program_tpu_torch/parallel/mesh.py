@@ -55,7 +55,18 @@ reduction change:
     (`data_axis`), and the mean over k divides by the global k
     (models/metrics.py:k_mean);
   * the rows of the global batch are split over the dp data indices
-    (`shard_rows`), not over the world.
+    (`shard_rows`), not over the world, and a per-example output of the
+    replicated decoders is gathered over the data index only
+    (`gather_rows(t, data_axis(mesh))`): the world's gather would repeat
+    every row D times.
+
+With bf16 compute every collective reduces what JAX's jit reduces (each
+function's docstring says which dtype it is fed and why): the mean over the
+k demos sums in f32 and rounds once, as jnp.mean of bf16 does; the sums of
+BatchNorm, of the objective's denominators, of the report and of the
+gradients are f32 anyway; the gather of bf16 demo features is exact in any
+dtype, and its backward sums in f32. A backend that refuses a dtype
+raises; nothing is cast to dodge it.
 """
 
 import dataclasses
@@ -289,10 +300,23 @@ def shard_batch(batch, mesh):
 # the seen-demo keys, (bs, k, ...): sharded on both axes of a 2-D mesh;
 # every other key on the data axis only. The compact wire's keys are among
 # them, so the replay runs on the rank's demos (the JAX package's list,
-# demo2program_tpu/parallel/mesh.py:71-73).
+# demo2program_tpu/parallel/mesh.py:71-73), and so are the ViZDoom device
+# cache's frames and percepts (dc_s_h, dc_per), which JAX's list leaves to
+# jit to reshard: a rank here expands its own demos only.
 DEMO_AXIS_KEYS = ("s_h", "a_h", "a_h_tokens", "per", "demo_len",
                   "init_pos", "init_pos_len",
-                  "c_wall", "c_marker", "c_agent", "c_a_raw")
+                  "c_wall", "c_marker", "c_agent", "c_a_raw",
+                  "dc_s_h", "dc_per")
+
+
+def shard_demos(batch, mesh):
+    """The rank's demos of the seen-demo keys of a batch dict whose rows
+    are already the rank's (numpy arrays or tensors; every other key as it
+    is): the identity on a 1-D mesh."""
+    if mesh is None or mesh.demo_par == 1:
+        return batch
+    return {k: _shard(v, 1, mesh.demo_par, mesh.demo_rank, f"demos of {k!r}")
+            if k in DEMO_AXIS_KEYS else v for k, v in batch.items()}
 
 
 def shard_batch_2d(batch, mesh):
@@ -301,13 +325,38 @@ def shard_batch_2d(batch, mesh):
     and of the seen-demo keys its demos [j * k / D, (j + 1) * k / D), j its
     demo index. Raises ValueError when the rows do not split over dp or
     the demos over D."""
-    out = shard_batch(batch, mesh)
-    if mesh is None or mesh.demo_par == 1:
-        return out
-    for k in DEMO_AXIS_KEYS:
-        if k in out:
-            out[k] = _shard(out[k], 1, mesh.demo_par, mesh.demo_rank,
-                            f"demos of {k!r}")
+    return shard_demos(shard_batch(batch, mesh), mesh)
+
+
+@torch.no_grad()
+def demo_group_rows(batch, mesh):
+    """The rows of the rank's data index, from a batch dict of which each
+    rank of the demo group holds rows of its own (every demo; tensors on
+    the mesh's device): the group's rows in demo-rank order, and of the
+    seen-demo keys only this rank's demos [j * k / D, (j + 1) * k / D)
+    (the identity on a 1-D mesh). One all_to_all a key over the demo group:
+    a rank sends each peer only the demos that peer keeps, so the frames,
+    most of the bytes, cross at 1/D of what an all-gather and slice would
+    move; the other keys are whole rows that every peer needs (an
+    all-gather). Raises ValueError when the demos do not split over D."""
+    if mesh is None or mesh.demo_group is None:
+        return batch
+    D, out = mesh.demo_par, {}
+    for key, t in batch.items():
+        if key in DEMO_AXIS_KEYS:
+            n, k = t.shape[:2]
+            if k % D:
+                raise ValueError(f"{k} demos of {key!r} do not split over "
+                                 f"{D} demo indices")
+            # (n, D, k / D, ...) -> (D, n, k / D, ...): peer j's part first
+            send = t.reshape((n, D, k // D) + tuple(t.shape[2:])).transpose(
+                0, 1)
+        else:
+            send = t.unsqueeze(0).expand((D,) + tuple(t.shape))
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=mesh.demo_group)
+        out[key] = recv.reshape((D * send.shape[1],) + tuple(send.shape[2:]))
     return out
 
 
@@ -340,7 +389,7 @@ def all_reduce_sum(t, mesh, group=None):
 
 def demo_sum(t, mesh):
     """Differentiable sum of `t` across the rank's demo group (the identity
-    on a 1-D mesh)."""
+    on a 1-D mesh), in t's dtype: demo_mean feeds it f32."""
     if mesh is None or mesh.demo_group is None:
         return t
     return all_reduce_sum(t, mesh, mesh.demo_group)
@@ -351,12 +400,17 @@ def demo_mean(x, mesh, dim=1):
     is the demo axis, holding the rank's k / D demos, and every other dim
     whole: the demo group's sum of the local sums over the global count,
     replicated across the demo group and differentiable (x.mean(dim) on a
-    1-D mesh)."""
+    1-D mesh). The sums run in f32 and the mean is cast to x's dtype once,
+    as jnp.mean of bf16 does (f32 reduce_sum, divide, one cast), so under
+    GSPMD JAX's demo mean all-reduces f32 partial sums; summed in bf16, the
+    local sum, the group's sum and the division would round three times.
+    The backward is the demo group's sum of the f32 gradient."""
     if mesh is None or mesh.demo_group is None:
         return x.mean(dim)
     dims = (dim,) if isinstance(dim, int) else dim
     count = math.prod(x.shape[d] for d in dims) * mesh.demo_par
-    return demo_sum(x.sum(dim), mesh) / count
+    total = demo_sum(x.sum(dim, dtype=torch.float32), mesh)
+    return (total / count).to(x.dtype)
 
 
 class _AllGatherDemos(torch.autograd.Function):
@@ -364,7 +418,12 @@ class _AllGatherDemos(torch.autograd.Function):
     gradient of each rank's slice is its part of the sum of every rank's
     output gradient. Each rank writes its slice into zeros of the gathered
     shape and the group sums them (all_reduce takes CUDA tensors on gloo and
-    NCCL; adding zeros is exact)."""
+    NCCL; adding zeros is exact, so a bf16 gather is the features bit for
+    bit). The backward sums the replicas' shares of the gradient in f32
+    and rounds once to the input's dtype: the gradient of JAX's global
+    batch function has no such sum (the shares are the replicated
+    decoders' here), so under bf16 compute the sum must not round at each
+    of its D - 1 additions."""
 
     @staticmethod
     def forward(ctx, t, dim, demo_rank, demo_par, group):
@@ -380,10 +439,10 @@ class _AllGatherDemos(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return (grad.narrow(ctx.dim, ctx.part.start,
-                            ctx.part.stop - ctx.part.start),
+        total = grad.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(total, group=ctx.group)
+        return (total.narrow(ctx.dim, ctx.part.start,
+                             ctx.part.stop - ctx.part.start).to(grad.dtype),
                 None, None, None, None)
 
 
@@ -411,7 +470,8 @@ def data_axis(mesh):
 @torch.no_grad()
 def global_sum(t, mesh):
     """Sum of `t` across the mesh's ranks, outside autograd: the
-    denominators of the objective's masked means."""
+    denominators of the objective's masked means (f32 mask sums in every
+    compute dtype)."""
     if mesh is None or not mesh.distributed:
         return t.detach()
     out = t.detach().clone()
@@ -426,7 +486,9 @@ def world_of(mesh):
 @torch.no_grad()
 def global_report(report, mesh):
     """A dict of 0-d partial sums -> their sums across the ranks, in one
-    all-reduce (the identity without a group)."""
+    f32 all-reduce (the identity without a group). The objective's scalars
+    are f32 in every compute dtype: f32 labels and masks promote bf16
+    logits' terms, as in the JAX objective."""
     if mesh is None or not mesh.distributed or not report:
         return report
     keys = list(report)
@@ -439,7 +501,8 @@ def global_report(report, mesh):
 def all_reduce_gradients(params, mesh):
     """Sum the gradients of `params` across the ranks in one flat bucket
     (a parameter without a gradient counts as zeros, as in the JAX
-    gradient tree)."""
+    gradient tree). The parameters and so their gradients are f32 in every
+    compute dtype (train/step.py:compute_call)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
@@ -459,7 +522,8 @@ def gather_rows(t, mesh):
     """Every rank's rows of `t` (a tensor on the mesh's device), in rank
     order, on every rank: each rank writes its rows into zeros of the
     global shape and the group sums them (all_reduce takes CUDA tensors on
-    both backends)."""
+    both backends; adding zeros is exact in any dtype). On a 2-D mesh,
+    gather the rows of the data indices with `data_axis(mesh)`."""
     if mesh is None or not mesh.distributed:
         return t
     n = t.shape[0]

@@ -17,7 +17,9 @@ Under a data mesh (parallel/mesh.py) the Karel split is replicated, as the
 JAX cache's is (demo2program_tpu/train/device_cache.py:78-80): every rank
 draws the global batch's rows of step s and gathers its own slice of them,
 the counterpart of the JAX chunked step's batch-sharding constraint
-(demo2program_tpu/train/step.py:184-187).
+(demo2program_tpu/train/step.py:184-187). On a 2-D `data x demo` mesh the
+rank gathers the rows of its data index and, of the seen-demo keys, only
+its demos: shard_batch_2d of the global batch.
 
 DoomDeviceCache does the same for a ViZDoom split, whose frames cannot be
 replayed on the device, and shards it over the mesh: see its docstring.
@@ -31,7 +33,8 @@ import os.path as osp
 import numpy as np
 import torch
 
-from demo2program_tpu_torch.parallel.mesh import shard_rows
+from demo2program_tpu_torch.parallel.mesh import (
+    demo_group_rows, shard_demos, shard_rows)
 from demo2program_tpu_torch.utils import log
 from demo2program_tpu_torch.train.step import to_device
 
@@ -42,8 +45,8 @@ class KarelDeviceCache:
     InMemoryKarelSplit) on `device`. The unseen-demo `test_*` arrays are
     kept only with `include_test`: the induction baseline trains on the
     test demos' actions, the other models do not read them. `batch_size` is
-    the global batch's; with a data `mesh`, batch(s) is the rank's rows of
-    it."""
+    the global batch's; with a data `mesh`, batch(s) is the rank's part of
+    it (shard_batch_2d: its rows, and on a 2-D mesh its demos)."""
 
     def __init__(self, dataset, device, batch_size, seed, include_test=False,
                  mesh=None):
@@ -63,6 +66,8 @@ class KarelDeviceCache:
         log.info("karel device cache: %.1f MB (%d items, replicated) on %s",
                  sum(t.nbytes for t in self.data.values()) / 1e6, self.n,
                  self.device)
+        # views of the rank's demos of the split (all of it on a 1-D mesh)
+        self._local = shard_demos(self.data, mesh)
         self._epoch, self._perm = None, None
 
     def permutation(self, epoch):
@@ -81,10 +86,10 @@ class KarelDeviceCache:
         return self._perm[s_in_e * bs:(s_in_e + 1) * bs]
 
     def batch(self, step):
-        """The compact batch of step `step` (the rank's rows of it),
+        """The compact batch of step `step` (the rank's part of it),
         gathered on the device."""
         idx = shard_rows(self.indices(step), self.mesh)
-        return {k: v.index_select(0, idx) for k, v in self.data.items()}
+        return {k: v.index_select(0, idx) for k, v in self._local.items()}
 
 
 # the sidecar is built at the dataset's full k when the host arrays fit this
@@ -139,7 +144,14 @@ class DoomDeviceCache:
     rank keeps the one RandomState(seed) and draws for ALL shards exactly as
     `_draw_sharded` does (a permutation per shard over its real items; a
     shard with none samples its pad rows), then gathers its own draw: the
-    global ids of every step are JAX's, pad rows included.
+    global ids of every step are JAX's, pad rows included. On a 2-D `data x
+    demo` mesh the items are sharded over all its ranks in rank order, as
+    JAX's cache shards them over every device (:135-168, P(("data",
+    "demo"))), so the rows of data index i are the draws of shards i * D ..
+    i * D + D - 1, one on each rank of its demo group; the group exchanges
+    them (parallel/mesh.py:demo_group_rows, an all_to_all) and each rank
+    keeps its demos of the seen-demo keys: shard_batch_2d of JAX's global
+    batch, which JAX's jit reshards to P("data", "demo").
 
     The batch of step s is the stream's s-th draw (`batch(s)`;
     `fast_forward(n)` skips n draws on the host), so a resumed run, or a
@@ -165,9 +177,13 @@ class DoomDeviceCache:
         self.seed = seed
         self.ids = np.asarray(dataset.ids)
         self.n = n = len(self.ids)
+        self.mesh = mesh
         self.n_shards = 1 if mesh is None else mesh.world
         self.rank = 0 if mesh is None else mesh.rank
         self._check_batch_size(batch_size)
+        if mesh is not None and dataset.num_k % mesh.demo_par:
+            raise ValueError(f"{dataset.num_k} demos do not split over "
+                             f"{mesh.demo_par} demo indices")
         self.batch_size = batch_size
         pad = (-n) % self.n_shards
         if pad > n:
@@ -375,7 +391,8 @@ class DoomDeviceCache:
         return self.draws(step)[0][self.rank]
 
     def batch(self, step):
-        """The rank's rows of the batch of step `step`, gathered on the
-        device."""
+        """The rank's part of the batch of step `step` (its rows, and on a
+        2-D mesh its demos), gathered on the device."""
         idx = torch.as_tensor(self.indices(step), device=self.device)
-        return {k: v.index_select(0, idx) for k, v in self.data.items()}
+        return demo_group_rows({k: v.index_select(0, idx)
+                                for k, v in self.data.items()}, self.mesh)

@@ -294,10 +294,13 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
     trainer's image summaries' probabilities to the evals
     (objective.program_eval_tensors). Returns eval_step(batch) ->
     (report, evals), batch being a dict of tensors on the model's device:
-    with `mesh`, the rank's rows of the global batch, and then the report
-    and the evals' scalars are the global batch's (summed across the
-    ranks), the per-example evals the rank's rows, and syntax_sample's
-    draws the global batch's, sharded."""
+    with `mesh`, the rank's part of the global batch (shard_batch_2d: its
+    rows, and on a 2-D mesh its demos), and then the model's poolings over
+    the k demos reach the demo group (use_mesh), the report and the evals'
+    scalars are the global batch's (summed across the ranks), the
+    per-example evals the rank's rows (gather them over the data index,
+    gather_rows(t, data_axis(mesh))), and syntax_sample's draws the global
+    batch's, sharded by rows."""
     kwargs = {} if decode_mode == "greedy" else {"decode_mode": decode_mode}
 
     @torch.no_grad()
@@ -309,13 +312,14 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
             generator = torch.Generator(device=device).manual_seed(
                 decode_seed)
             if world_of(mesh) > 1:  # the global batch's draws, sharded
-                rows = batch["program_tokens"].shape[0] * mesh.world
+                rows = batch["program_tokens"].shape[0] * dp_of(mesh)
                 kwargs["decode_noise"] = shard_rows(gumbel(
                     (cfg.max_program_len, rows, cfg.dim_program_token),
                     generator, device), mesh, dim=1)
             else:
                 kwargs["generator"] = generator
-        out = compute_call(model, cfg, batch, **kwargs)
+        with use_mesh(model, mesh):
+            out = compute_call(model, cfg, batch, **kwargs)
         _, report = objective.compute_loss(cfg, out, batch, model_name,
                                            mesh)
         report.update(objective.greedy_action_report(cfg, out, batch,

@@ -90,7 +90,7 @@ from demo2program_tpu_torch.eval.evaler import (
 from demo2program_tpu_torch.models.ops import init_parameters
 from demo2program_tpu_torch.models.registry import get_model_class
 from demo2program_tpu_torch.parallel.mesh import (
-    data_parallel_size, gather_host_rows, gather_rows, make_mesh,
+    data_axis, data_parallel_size, gather_host_rows, gather_rows, make_mesh,
     process_world, shard_rows)
 from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.tools.karel_render import state2image
@@ -371,10 +371,11 @@ class Trainer:
         step = self.state.step
         self._log_line("val", step, report, time.time() - t1)
         self._write_metrics("val", step, report)
-        evals = {k: gather_rows(v, self.mesh).cpu().numpy()
+        rows = data_axis(self.mesh)  # a row's replicas counted once
+        evals = {k: gather_rows(v, rows).cpu().numpy()
                  for k, v in evals.items() if v.dim() > 0}
         programs = gather_host_rows({k: batch[k] for k in (
-            "program_tokens", "program_len")}, self.mesh)
+            "program_tokens", "program_len")}, rows)
         if self.writes:
             self._write_samples(step, dict(batch, **programs), evals)
 
