@@ -12,7 +12,8 @@ without them. It:
      and spills for every kernel instance, and checks that none spills;
   3. kernel phase: holds the kernel against its plain PyTorch version on the
      card at every shape of the full model's path (D in {48, 512},
-     H = 512, B in {32, 320}), at beam search's (160, 512), at the two
+     H = 512, B in {32, 320}), at the recipe evals' (200, 48) and (20, 512)
+     (the evaler's batch of 20), at beam search's (160, 512), at the two
      only the induction baseline runs ((B, D) = (320, 53) and (160,
      1024)) and at ViZDoom's (800, 432) and (800, 512) (bs 32 x k 25 rows;
      432 = the 5-conv encoder's 3 x 3 x 48 features), f32 and bf16, prints
@@ -175,7 +176,18 @@ without them. It:
      2-D batch source (KarelDeviceCache, BatchPipeline, DoomDeviceCache at
      k 20) that must equal the step on shard_batch_2d of the same global
      batch bit for bit;
- 15. prints one JSON line describing the kernel: its time, the plain
+ 15. recipe phase (cli/recipe_cli.py, stage S of the JAX package's Karel
+     recipe): generates a 96 / 40 / 40 three-way split in memory with the
+     native engine (data/karel_memory.py:generate_splits), runs the recipe
+     at full width (synthesis, units 512, bs 32, k 10) for 40 steps with a
+     checkpoint every 10, val at 20, 30 and 40 (2 batches of 20 each) and
+     the test eval of the selected step, in one process; then the same run
+     stopped at 20 through its carry and resumed in a fresh directory: the
+     final train states must be equal bit for bit, the best step and every
+     report the same, and every stage's launches T + L a step and T + 2L
+     an eval batch of the split's T and L (61 and 102 on karel_25k, whose
+     data_info has T 20, L 41);
+ 16. prints one JSON line describing the kernel: its time, the plain
      version's, torch.lstm_cell's (the one library call that computes the
      same step) and the least time the card could take (bound_ms, by bytes
      or by operations) at every shape, with every path's launches, then
@@ -211,11 +223,12 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from demo2program_tpu_torch import native
-from demo2program_tpu_torch.cli import evaler_cli, trainer_cli
+from demo2program_tpu_torch.cli import evaler_cli, recipe_cli, trainer_cli
 from demo2program_tpu_torch.cli.evaler_cli import parse_args
-from demo2program_tpu_torch.data.karel_generator import generate_records
+from demo2program_tpu_torch.data.karel_generator import (
+    GeneratorConfig, generate_records)
 from demo2program_tpu_torch.data.karel_memory import (
-    SplitConfig, generate_split, split_from_records)
+    SplitConfig, generate_split, generate_splits, split_from_records)
 from demo2program_tpu_torch.data.pipeline import BatchPipeline
 from demo2program_tpu_torch.data import vizdoom_memory
 from demo2program_tpu_torch.data.vizdoom_generator import (
@@ -265,6 +278,9 @@ KERNEL_SHAPES = [(B, D) for D in (48, 512) for B in (32, 320)]
 # CNN features + 5 percepts, at B = bs * k; its attention decoder's cell
 # input, [embedding, attention] = 2 * units, at B = bs * test_k
 BASELINE_SHAPES = [(320, 53), (160, 1024)]
+# the recipe's evals (cli/recipe_cli.py) run at the evaler's batch of 20:
+# the encoder at B = 20 * k, the program decoder at 20
+RECIPE_EVAL_SHAPES = [(20 * 10, 48), (20, 512)]
 # beam search folds its K = 5 beams into the batch: the program decoder
 # runs at B = bs * K
 BEAM_WIDTH = 5
@@ -376,6 +392,13 @@ DATA_VZD_STEPS, DATA_VZD_LOG_STEP = 10, 5
 DATA_TURN_STEPS, DATA_TURN_LOG_STEP = 20, 10
 PROFILED_RUN_STEPS = 2
 KERNEL_NAME = "fused_lstm_step_kernel"  # the __global__ in fused_lstm.cu
+# the recipe phase: stage S's runner (cli/recipe_cli.py) at full width on a
+# generated three-way split, in one process and staged through its carry
+RECIPE_SPLIT = GeneratorConfig(num_train=96, num_test=40, num_val=40,
+                               seed=SEED)
+RECIPE = dict(max_steps=40, ckpt_save_step=10, test_sample_step=10,
+              log_step=10, val_steps=(20, 30, 40), val_batches=2)
+RECIPE_STAGE_AT = 20
 
 
 def check(cond, msg):
@@ -496,7 +519,8 @@ def kernel_phase():
     for dtype in (torch.float32, torch.bfloat16):
         atol, rtol = TOL[dtype]
         for B, D in (KERNEL_SHAPES + BEAM_SHAPES + BASELINE_SHAPES
-                     + VIZDOOM_SHAPES + DP_SHAPES + DEMO_SHAPES):
+                     + VIZDOOM_SHAPES + DP_SHAPES + DEMO_SHAPES
+                     + RECIPE_EVAL_SHAPES):
             def rnd(*shape, scale=1.0):
                 return (torch.randn(*shape, generator=g, device=dev)
                         * scale).to(dtype)
@@ -3087,6 +3111,105 @@ def dp_demo_phase(split, vz_train, train_ckpt):
     return res
 
 
+def recipe_launches(state, per_step, per_sample, test_sample_step):
+    """The kernel launches each stage of a recipe state should have made:
+    per_step a train step and per_sample a test-sample eval (steps s of
+    the stage with s % test_sample_step == 0), per_sample an eval batch."""
+    want = []
+    for call in state["calls"]:
+        for st in call["stages"]:
+            if st["kind"] == "train":
+                samples = sum(1 for s in range(st["from"], st["to"])
+                              if s % test_sample_step == 0)
+                want.append((st["to"] - st["from"]) * per_step
+                            + samples * per_sample)
+            else:
+                ev = (state["test"] if st["kind"] == "eval_test"
+                      else state["evals"][str(st["step"])])
+                want.append(ev["batches"] * per_sample)
+    return want
+
+
+def recipe_phase():
+    """Stage S's runner at full width (units 512, bs 32, k 10) on a
+    generated 96 / 40 / 40 split (native engine): 40 synthesis steps with a
+    checkpoint every 10 and val at 20, 30 and 40 (2 batches of 20 each),
+    then the test eval of the selected step, in one process; then the same
+    stopped at 20 through --carry_dir and resumed in a fresh directory.
+    Both must end with equal train states bit for bit, the same best step
+    and the same reports; every stage's launches must follow the formula
+    (T + L a step, T + 2L a test-sample eval and an eval batch)."""
+    splits = generate_splits(RECIPE_SPLIT, "native")
+    check(all(s.id_sha256 == splits[0].id_sha256 for s in splits)
+          and [len(s.ids) for s in splits] == [96, 40, 40],
+          "the recipe split's parts")
+    recipe = dataclasses.replace(recipe_cli.STAGE_S,
+                                 split_sha256=splits[0].id_sha256, **RECIPE)
+    root = os.path.join(OUT_DIR, "recipe")
+    shutil.rmtree(root, ignore_errors=True)
+    carry = os.path.join(root, "carry")
+    fused_lstm.reset_launches()
+    t0 = time.perf_counter()
+    one = recipe_cli.RecipeRun(recipe, splits, os.path.join(root, "one"),
+                               device=DEVICE).run()
+    t_one = time.perf_counter() - t0
+    launches_one = fused_lstm.fused_lstm_step.launches
+    fused_lstm.reset_launches()
+    first = recipe_cli.RecipeRun(
+        recipe, splits, os.path.join(root, "a"), device=DEVICE,
+        until_step=RECIPE_STAGE_AT, carry_dir=carry).run()
+    staged = recipe_cli.RecipeRun(
+        recipe, splits, os.path.join(root, "b"), device=DEVICE,
+        resume_from=carry).run()
+    launches_staged = fused_lstm.fused_lstm_step.launches
+    check(first["trained_step"] == RECIPE_STAGE_AT and first["test"] is None,
+          f"the first stage ended at {first['trained_step']}")
+
+    cfg = config_from_dataset(trainer_cli.parse_args(
+        recipe.trainer_argv("", DEVICE)), splits[0])
+    per_step, per_sample = lstm_launches(cfg)
+    for name, st, n in (("one process", one, launches_one),
+                        ("staged", [first, staged], launches_staged)):
+        states = st if isinstance(st, list) else [st]
+        have = [c for s in states for call in s["calls"][-1:]
+                for c in call["stages"]]
+        want = [w for s in states for w in recipe_launches(
+            {**s, "calls": s["calls"][-1:]}, per_step, per_sample,
+            recipe.test_sample_step)]
+        check([h["launches"] for h in have] == want and sum(want) == n,
+              f"recipe {name}: launches {[h['launches'] for h in have]}, "
+              f"{n} in all, expected {want} ({per_step} a step, "
+              f"{per_sample} an eval batch)")
+    final = [checkpoint.load(checkpoint.checkpoint_path(
+        os.path.join(root, d, "train"), recipe.max_steps))
+        for d in ("one", "b")]
+    check(equal_states(*final),
+          "the staged recipe run's final train state differs from the run "
+          "in one process")
+    scores = ("execution", "execution_unrounded",
+              "greedy_exact_program_accuracy", "greedy_program_seq_acc")
+    for key in ("20", "30", "40"):
+        check(all(staged["evals"][key][k] == one["evals"][key][k]
+                  for k in scores), f"recipe val {key}: staged differs")
+    check(staged["best_step"] == one["best_step"] and all(
+        staged["test"][k] == one["test"][k] for k in scores),
+        "recipe: the staged test report differs")
+    check(all(np.isfinite(one["test"][k]) for k in scores[1:]),
+          "recipe: non-finite test scores")
+    out = {"seconds_one_process": t_one, "best_step": one["best_step"],
+           "launches_one_process": launches_one,
+           "launches_staged": launches_staged,
+           "per_step": per_step, "per_eval_batch": per_sample,
+           "val": {k: one["evals"][k]["execution_unrounded"]
+                   for k in ("20", "30", "40")},
+           "test": {k: one["test"][k] for k in scores},
+           "eval_s_per_batch": one["test"]["s_per_batch"],
+           "s_per_step": [s["s_per_step"] for s in one["calls"][-1]["stages"]
+                          if s["kind"] == "train"]}
+    print("recipe " + json.dumps(out), flush=True)
+    return out
+
+
 def cards_main():
     """dp_cards_phase alone, on a machine with several cards (the build,
     the splits, then the phase):
@@ -3152,6 +3275,7 @@ def main():
                     train["checkpoint"])
     if torch.cuda.device_count() > 1:  # NCCL takes a card a rank
         timed("dp cards", dp_cards_phase, split, vizdoom_splits[0])
+    recipe = timed("recipe", recipe_phase)
     print(f"phase all: {time.perf_counter() - t0:.1f} s ({CARD})", flush=True)
 
     def contract(r):  # the contract's names, device times of this run
@@ -3189,7 +3313,9 @@ def main():
                for n in ("karel", "karel_compact", "vizdoom", "karel_bf16",
                          "vizdoom_bf16")},
             **{f"dp_demo_eval_{m}_per_rank": r["launches_per_rank"]
-               for m, r in dp_demo["eval_2d"].items()}},
+               for m, r in dp_demo["eval_2d"].items()},
+            "recipe_one_process": recipe["launches_one_process"],
+            "recipe_staged": recipe["launches_staged"]},
         "shapes": [dict(r, **contract(r)) for r in rows]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

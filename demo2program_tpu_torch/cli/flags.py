@@ -59,8 +59,16 @@ def add_train_flags(p):
     p.add_argument("--ckpt_save_step", type=int, default=1000)
     p.add_argument("--max_steps", type=int, default=1_000_000)
     p.add_argument("--profile_steps", type=int, default=0,
-                   help="not ported: a nonzero value raises")
+                   help="capture a torch.profiler trace (the host, and the "
+                        "card's kernels on cuda) of N steps from "
+                        "--profile_start, written as a Chrome trace to "
+                        "<train_dir>/profile")
     p.add_argument("--profile_start", type=int, default=10)
     p.add_argument("--sample_images", action="store_true", default=False,
-                   help="not ported: raises")
+                   help="also write PNGs per test-sample step to "
+                        "<train_dir>/samples: the gt / pred / greedy "
+                        "programs' heat map, and on Karel the first demo's "
+                        "states, action map and perception map, mirroring "
+                        "the reference's image summaries "
+                        "(model_full.py:1223-1297)")
     return p

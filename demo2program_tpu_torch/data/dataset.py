@@ -224,13 +224,19 @@ def all_ids(dataset_path, rng_seed=_SPLIT_RNG_SEED):
         num_val = int(ov.get("num_val", num_val))
     with open(osp.join(dataset_path, "id.txt")) as fp:
         ids_total = [s.strip() for s in fp.readlines() if s.strip()]
+    return split_ids(ids_total, num_train, num_test, num_val, rng_seed)
 
+
+def split_ids(ids_total, num_train, num_test, num_val,
+              rng_seed=_SPLIT_RNG_SEED):
+    """The ids in id.txt order -> (train, test, val): the first num_train,
+    the next num_test, the next num_val, each shuffled by one shared
+    RandomState(rng_seed) in that call order (`dataset_karel.py:156-158`;
+    demo2program_tpu/data/dataset.py:362-372)."""
+    ids_total = list(ids_total)
     ids_train = ids_total[:num_train]
     ids_test = ids_total[num_train:num_train + num_test]
     ids_val = ids_total[num_train + num_test:num_train + num_test + num_val]
-
-    # fixed-seed shuffles, in the reference's call order
-    # (`dataset_karel.py:156-158` sharing one RandomState(123))
     rs = np.random.RandomState(rng_seed)
     rs.shuffle(ids_train)
     rs.shuffle(ids_test)

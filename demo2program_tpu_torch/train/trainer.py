@@ -380,9 +380,11 @@ class Trainer:
             self._write_samples(step, dict(batch, **programs), evals)
 
     # -- loop ------------------------------------------------------------------
-    def train(self, max_steps=1_000_000):
+    def train(self, max_steps=1_000_000, stop_at=None):
         """Train to state.step + max_steps (a resumed run: to the target in
-        resume.json)."""
+        resume.json). With `stop_at`, stop there if it comes first, with a
+        checkpoint: a later Trainer on the train_dir resumes from it and
+        goes on as the uninterrupted run would."""
         args = self.args
         if not self.mesh.active:
             return
@@ -395,11 +397,12 @@ class Trainer:
         elif self.writes:
             with open(resume_path, "w") as f:
                 json.dump({"target_step": target}, f)
-        if start >= target:
-            log.infov("Nothing to do: step %d >= target %d", start, target)
+        end = target if stop_at is None else min(target, stop_at)
+        if start >= end:
+            log.infov("Nothing to do: step %d >= target %d", start, end)
             self.close()
             return
-        log.infov("Training Starts! (step %d -> %d)", start, target)
+        log.infov("Training Starts! (step %d -> %d)", start, end)
         p_start = start + args.profile_start
         p_end = p_start + args.profile_steps
         profiler = None
@@ -408,7 +411,7 @@ class Trainer:
         win_t, win_s = time.time(), start
         s = start
         try:
-            while s < target:
+            while s < end:
                 if s % args.test_sample_step == 0:
                     self._test_sample()
                     win_t, win_s = time.time(), s
@@ -431,7 +434,7 @@ class Trainer:
                                    (now - win_t) / max(s - win_s, 1))
                     self._write_metrics("train", s, report)
                     win_t, win_s = now, s
-                if s % args.ckpt_save_step == 0 and s < target:
+                if s % args.ckpt_save_step == 0 and s < end:
                     self.save()
                     win_t, win_s = time.time(), s
             self.save()

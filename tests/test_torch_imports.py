@@ -34,7 +34,7 @@ for name in ("tools.eval_execution", "tools.inspect_output", "native",
              "cli.generator_cli", "tools.visualize_data", "utils.png",
              "parallel", "parallel.mesh", "tools.hit_analysis",
              "tools.measure_program_fix_accuracy",
-             "tools.doom_error_analysis"):
+             "tools.doom_error_analysis", "cli.recipe_cli"):
     assert "demo2program_tpu_torch." + name in names, name
 # nothing builds at import, and no process group forms
 assert sys.modules["demo2program_tpu_torch.native"]._lib is None
