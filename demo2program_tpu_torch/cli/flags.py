@@ -62,7 +62,10 @@ def add_train_flags(p):
                    help="capture a torch.profiler trace (the host, and the "
                         "card's kernels on cuda) of N steps from "
                         "--profile_start, written as a Chrome trace to "
-                        "<train_dir>/profile")
+                        "<train_dir>/profile; the program's d2p.* spans "
+                        "are on for those steps, appear in the trace as "
+                        "ranges, and their summary (calls, inclusive and "
+                        "self ms a step) is logged at the end")
     p.add_argument("--profile_start", type=int, default=10)
     p.add_argument("--sample_images", action="store_true", default=False,
                    help="also write PNGs per test-sample step to "

@@ -11,13 +11,13 @@ Port of demo2program_tpu/eval/scorer.py (`model_full.py:602-916`):
     its length match, OR the tokens matched exactly.
 
 Syntax and canonical checks are host string work on the shared DSL; the
-(bs x k) execution grid runs on the device. `timings` accumulates the
-seconds spent in each ("host": parsing, canonical forms and bytecode
-compilation; "vm": replay + VM runs, synchronised by the copy of the
-verdicts to the host).
+(bs x k) execution grid runs on the device. `timings` holds the seconds
+spent in each, the process's totals of the spans (utils/spans.py) that
+time them: "host", `d2p.score.host` (parsing, canonical forms and bytecode
+compilation); "vm", `d2p.score.replay` (the demos' replay) and
+`d2p.score.vm` (the VM runs, synchronised by the copy of the verdicts to
+the host).
 """
-
-import time
 
 import numpy as np
 import torch
@@ -28,6 +28,10 @@ from demo2program_tpu_torch.dsl.karel_bytecode import (
 from demo2program_tpu_torch.dsl.karel_vocab import KarelVocab
 from demo2program_tpu_torch.ops import reconstruct, vm
 from demo2program_tpu_torch.ops.grids import decode_states
+from demo2program_tpu_torch.utils import spans
+
+TIMINGS = {"host": ("d2p.score.host",),
+           "vm": ("d2p.score.replay", "d2p.score.vm")}
 
 
 def to_host(a):
@@ -42,27 +46,29 @@ class KarelScorer:
         self.vocab = vocab or KarelVocab()
         self.max_code_len = max_code_len
         self.make_error = cfg.env_type != "no_error"
-        self.timings = {"host": 0.0, "vm": 0.0}
+        self.timings = spans.TotalsView(**TIMINGS)
 
     # -- host-side string metrics --------------------------------------------
     def syntax_and_exact(self, pred_tokens, pred_len, is_same_seq,
                          gt_tokens, gt_len):
         """Returns (is_correct_syntax (bs,), exact_correct (bs,))."""
-        t0 = time.perf_counter()
-        bs = pred_tokens.shape[0]
-        syntax = np.zeros(bs, np.float32)
-        exact = np.zeros(bs, np.float32)
-        for i in range(bs):
-            p_str = self.vocab.intseq2str(pred_tokens[i, :int(pred_len[i])])
-            if is_same_seq[i] == 1:
-                syntax[i] = 1.0
-            else:
-                _, ok = karel_parser.parse(p_str)
-                syntax[i] = float(ok)
-            if syntax[i] == 1.0:
-                g_str = self.vocab.intseq2str(gt_tokens[i, :int(gt_len[i])])
-                exact[i] = float(karel_canonical.programs_equal(p_str, g_str))
-        self.timings["host"] += time.perf_counter() - t0
+        with spans.span("d2p.score.host"):
+            bs = pred_tokens.shape[0]
+            syntax = np.zeros(bs, np.float32)
+            exact = np.zeros(bs, np.float32)
+            for i in range(bs):
+                p_str = self.vocab.intseq2str(
+                    pred_tokens[i, :int(pred_len[i])])
+                if is_same_seq[i] == 1:
+                    syntax[i] = 1.0
+                else:
+                    _, ok = karel_parser.parse(p_str)
+                    syntax[i] = float(ok)
+                if syntax[i] == 1.0:
+                    g_str = self.vocab.intseq2str(
+                        gt_tokens[i, :int(gt_len[i])])
+                    exact[i] = float(
+                        karel_canonical.programs_equal(p_str, g_str))
         return syntax, exact
 
     # -- on-device execution accuracy ----------------------------------------
@@ -90,10 +96,9 @@ class KarelScorer:
         scorer's device): the target state sequences are replayed on the
         device from initial state + recorded actions."""
         pfx = "test_" if test else ""
-        t0 = time.perf_counter()
-        rep, bs, k = (reconstruct.replay_test(batch, self.cfg) if test
-                      else reconstruct.replay_seen(batch, self.cfg))
-        self.timings["vm"] += time.perf_counter() - t0
+        with spans.span("d2p.score.replay"):
+            rep, bs, k = (reconstruct.replay_test(batch, self.cfg) if test
+                          else reconstruct.replay_seen(batch, self.cfg))
         init = (rep["y"][:, 0], rep["x"][:, 0], rep["d"][:, 0],
                 rep["markers"][:, 0])
         return self._execute_against(
@@ -102,21 +107,20 @@ class KarelScorer:
 
     def _execute_against(self, pred_tokens, pred_len, is_same_seq, target,
                          init, demo_len, bs, k):
-        t0 = time.perf_counter()
-        codes, compiled_ok = compile_batch(
-            to_host(pred_tokens), to_host(pred_len), self.vocab,
-            self.max_code_len)
-        codes_rep = np.repeat(codes, k, axis=0)  # one program per demo
-        t1 = time.perf_counter()
-        out = vm.run_and_compare(
-            torch.as_tensor(codes_rep, device=self.device), target["wall"],
-            init[0], init[1], init[2], init[3],
-            target["y"], target["x"], target["d"], target["markers"],
-            torch.as_tensor(demo_len, device=self.device).reshape(bs * k),
-            make_error=self.make_error, h=self.cfg.h, w=self.cfg.w)
-        vm_correct = out["correct"].cpu().numpy().reshape(bs, k)
-        self.timings["host"] += t1 - t0
-        self.timings["vm"] += time.perf_counter() - t1
+        with spans.span("d2p.score.host"):
+            codes, compiled_ok = compile_batch(
+                to_host(pred_tokens), to_host(pred_len), self.vocab,
+                self.max_code_len)
+            codes_rep = np.repeat(codes, k, axis=0)  # one program per demo
+        with spans.span("d2p.score.vm"):
+            out = vm.run_and_compare(
+                torch.as_tensor(codes_rep, device=self.device),
+                target["wall"], init[0], init[1], init[2], init[3],
+                target["y"], target["x"], target["d"], target["markers"],
+                torch.as_tensor(demo_len, device=self.device).reshape(
+                    bs * k),
+                make_error=self.make_error, h=self.cfg.h, w=self.cfg.w)
+            vm_correct = out["correct"].cpu().numpy().reshape(bs, k)
 
         same = to_host(is_same_seq).astype(bool)[:, None]
         ok = compiled_ok[:, None]

@@ -12,18 +12,19 @@ sequences matched exactly. One engine instance is reused across rollouts.
 
 The batch is read on the host (numpy arrays, or tensors copied back):
 `s_h`, `demo_len`, `init_pos`, `init_pos_len` and their `test_` twins.
-`timings` accumulates the seconds of the host string work ("host") and of
-the engine replays ("vm", the name the Evaler reads for the Karel VM).
+`timings` holds the seconds of the host string work ("host", span
+`d2p.score.host`) and of the engine replays ("vm", span `d2p.score.vm`, the
+name the Evaler reads for the Karel VM), the process's totals of those
+spans (utils/spans.py), as KarelScorer's.
 """
-
-import time
 
 import numpy as np
 
 from demo2program_tpu_torch.dsl import (
     vizdoom_canonical, vizdoom_interp, vizdoom_parser)
 from demo2program_tpu_torch.dsl.vizdoom_vocab import VizDoomDSLVocab
-from demo2program_tpu_torch.eval.scorer import to_host
+from demo2program_tpu_torch.eval.scorer import TIMINGS, to_host
+from demo2program_tpu_torch.utils import spans
 from demo2program_tpu_torch.utils.area_resize import area_resize
 
 
@@ -36,31 +37,30 @@ class VizdoomScorer:
             "not_simple")
         self.engine_config = engine_config
         self._world = None
-        self.timings = {"host": 0.0, "vm": 0.0}
+        self.timings = spans.TotalsView(**TIMINGS)
 
     # -- host-side string metrics (engine-free) -------------------------------
     def syntax_and_exact(self, pred_tokens, pred_len, is_same_seq,
                          gt_tokens, gt_len):
-        t0 = time.perf_counter()
-        bs = pred_tokens.shape[0]
-        syntax = np.zeros(bs, np.float32)
-        exact = np.zeros(bs, np.float32)
-        for i in range(bs):
-            if is_same_seq[i] == 1:
-                syntax[i] = 1.0
-            else:
-                p_str = self.vocab.intseq2str(
-                    pred_tokens[i, :int(pred_len[i])])
-                _, ok = vizdoom_parser.parse(p_str)
-                syntax[i] = float(ok)
-            if syntax[i] == 1.0:
-                p_str = self.vocab.intseq2str(
-                    pred_tokens[i, :int(pred_len[i])])
-                g_str = self.vocab.intseq2str(
-                    gt_tokens[i, :int(gt_len[i])])
-                exact[i] = float(
-                    vizdoom_canonical.programs_equal(p_str, g_str))
-        self.timings["host"] += time.perf_counter() - t0
+        with spans.span("d2p.score.host"):
+            bs = pred_tokens.shape[0]
+            syntax = np.zeros(bs, np.float32)
+            exact = np.zeros(bs, np.float32)
+            for i in range(bs):
+                if is_same_seq[i] == 1:
+                    syntax[i] = 1.0
+                else:
+                    p_str = self.vocab.intseq2str(
+                        pred_tokens[i, :int(pred_len[i])])
+                    _, ok = vizdoom_parser.parse(p_str)
+                    syntax[i] = float(ok)
+                if syntax[i] == 1.0:
+                    p_str = self.vocab.intseq2str(
+                        pred_tokens[i, :int(pred_len[i])])
+                    g_str = self.vocab.intseq2str(
+                        gt_tokens[i, :int(gt_len[i])])
+                    exact[i] = float(
+                        vizdoom_canonical.programs_equal(p_str, g_str))
         return syntax, exact
 
     # -- engine-backed execution accuracy -------------------------------------
@@ -98,22 +98,22 @@ class VizdoomScorer:
     def execution(self, pred_tokens, pred_len, is_same_seq,
                   s_h, demo_len, init_pos, init_pos_len):
         """Returns (num_correct (bs,), is_correct (bs, k))."""
-        t0 = time.perf_counter()
-        bs, k = s_h.shape[0], s_h.shape[1]
-        is_correct = np.zeros([bs, k], bool)
-        for i in range(bs):
-            if is_same_seq[i] == 1:
-                is_correct[i, :] = True
-                continue
-            p_str = self.vocab.intseq2str(pred_tokens[i, :int(pred_len[i])])
-            ast, ok = vizdoom_parser.parse(p_str)
-            if not ok:
-                continue
-            for d in range(k):
-                is_correct[i, d] = self._reproduces(
-                    ast, init_pos[i, d], init_pos_len[i, d], s_h[i, d],
-                    demo_len[i, d])
-        self.timings["vm"] += time.perf_counter() - t0
+        with spans.span("d2p.score.vm"):
+            bs, k = s_h.shape[0], s_h.shape[1]
+            is_correct = np.zeros([bs, k], bool)
+            for i in range(bs):
+                if is_same_seq[i] == 1:
+                    is_correct[i, :] = True
+                    continue
+                p_str = self.vocab.intseq2str(
+                    pred_tokens[i, :int(pred_len[i])])
+                ast, ok = vizdoom_parser.parse(p_str)
+                if not ok:
+                    continue
+                for d in range(k):
+                    is_correct[i, d] = self._reproduces(
+                        ast, init_pos[i, d], init_pos_len[i, d], s_h[i, d],
+                        demo_len[i, d])
         return is_correct.sum(axis=1).astype(np.float32), is_correct
 
     def execution_histogram(self, num_correct, k):
@@ -128,25 +128,24 @@ class VizdoomScorer:
         (highest-scoring: beams arrive score-sorted) beam that reproduces
         every seen demo wins, else the best-scoring beam. Stops at the first
         demo a beam misses. Returns pick (bs,) int."""
-        t0 = time.perf_counter()
-        s_h = to_host(batch["s_h"])
-        demo_len = to_host(batch["demo_len"])
-        init_pos = to_host(batch["init_pos"])
-        init_pos_len = to_host(batch["init_pos_len"])
-        bs, K, _ = beam_tokens.shape
-        k = s_h.shape[1]
-        pick = np.zeros(bs, np.int64)
-        for i in range(bs):
-            for j in range(K):
-                p_str = self.vocab.intseq2str(
-                    beam_tokens[i, j, :int(beam_lens[i, j])])
-                ast, ok = vizdoom_parser.parse(p_str)
-                if ok and all(self._reproduces(
-                        ast, init_pos[i, d], init_pos_len[i, d], s_h[i, d],
-                        demo_len[i, d]) for d in range(k)):
-                    pick[i] = j
-                    break
-        self.timings["vm"] += time.perf_counter() - t0
+        with spans.span("d2p.score.vm"):
+            s_h = to_host(batch["s_h"])
+            demo_len = to_host(batch["demo_len"])
+            init_pos = to_host(batch["init_pos"])
+            init_pos_len = to_host(batch["init_pos_len"])
+            bs, K, _ = beam_tokens.shape
+            k = s_h.shape[1]
+            pick = np.zeros(bs, np.int64)
+            for i in range(bs):
+                for j in range(K):
+                    p_str = self.vocab.intseq2str(
+                        beam_tokens[i, j, :int(beam_lens[i, j])])
+                    ast, ok = vizdoom_parser.parse(p_str)
+                    if ok and all(self._reproduces(
+                            ast, init_pos[i, d], init_pos_len[i, d], s_h[i, d],
+                            demo_len[i, d]) for d in range(k)):
+                        pick[i] = j
+                        break
         return pick
 
     def score_batch(self, batch, evals, skip_execution=False):

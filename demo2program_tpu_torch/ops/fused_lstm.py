@@ -20,7 +20,9 @@ recomputes `lstm_step_ref` from the saved (x, h, c, W, b) and
 differentiates it, as the JAX custom VJP's `_bwd` runs `jax.vjp` of
 `_lstm_step_ref`. The JAX backward is jnp, not Pallas, so the backward here
 is plain PyTorch on either device. Under `torch.no_grad()` the step is the
-direct dispatch.
+direct dispatch. Spans (utils/spans.py): `d2p.lstm.step` around
+`FusedLSTMCell.forward`, `d2p.lstm.backward` around the backward, on
+autograd's thread.
 
 The TPU cell's VMEM-size fallback and 128-lane padding are TPU rules and are
 not carried over: the CUDA kernel masks its own ragged edges.
@@ -34,6 +36,7 @@ import torch
 from torch import nn
 
 from demo2program_tpu_torch.ops import _build
+from demo2program_tpu_torch.utils import spans
 
 _SOURCES = ("fused_lstm.cu",)
 _ENTRY = {torch.float32: "d2p_fused_lstm_step_f32",
@@ -144,10 +147,11 @@ class FusedLSTMStep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dh, dc):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            outputs = lstm_step_ref(*inputs)
-        return torch.autograd.grad(outputs, inputs, (dh, dc))
+        with spans.span("d2p.lstm.backward"):
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                outputs = lstm_step_ref(*inputs)
+            return torch.autograd.grad(outputs, inputs, (dh, dc))
 
 
 def fused_lstm_step(x, h, c, w, b):
@@ -191,9 +195,11 @@ class FusedLSTMCell(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, carry, x):
-        """carry (c, h), x (B, D) -> ((c', h'), h')."""
-        c, h = carry
-        dt = self.kernel.dtype
-        h_new, c_new = fused_lstm_step(
-            x.to(dt), h.to(dt), c.to(dt), self.kernel, self.bias)
-        return (c_new.to(c.dtype), h_new.to(h.dtype)), h_new
+        """carry (c, h), x (B, D) -> ((c', h'), h'). Span
+        `d2p.lstm.step`."""
+        with spans.span("d2p.lstm.step"):
+            c, h = carry
+            dt = self.kernel.dtype
+            h_new, c_new = fused_lstm_step(
+                x.to(dt), h.to(dt), c.to(dt), self.kernel, self.bias)
+            return (c_new.to(c.dtype), h_new.to(h.dtype)), h_new

@@ -15,6 +15,11 @@ The loop asks the device whether any machine still runs only every
 the JAX `cond_fn` does. A step after every machine stopped changes nothing,
 so this is exact; the last block is cut so the step count never exceeds
 max_steps.
+
+Counters (utils/spans.py, kept only while tracing is on): `vm.steps`, the
+lock-step iterations of a call; `vm.machine_steps`, B x those; and
+`vm.live_machine_steps`, the machines still running at each iteration,
+summed on the device and left there until the counters are read.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ from demo2program_tpu_torch.dsl.karel_bytecode import (
     OP_HALT, OP_BUDGET, OP_INC, OP_ACT, OP_EVAL, OP_NEGC, OP_JMP, OP_JMPF,
     OP_PUSHCTR, OP_JZDEC, MAX_LOOP_DEPTH)
 from demo2program_tpu_torch.dsl.karel_interp import MAX_FUNC_CALL
+from demo2program_tpu_torch.utils import spans
 
 _FRONT = np.array([[-1, 0], [0, 1], [1, 0], [0, -1]], dtype=np.int64)
 _LEFT = np.array([[0, -1], [-1, 0], [0, 1], [1, 0]], dtype=np.int64)
@@ -75,6 +81,8 @@ class _Machines:
         self.match = torch.ones(B, dtype=torch.bool, device=dev)
         self.ctr = torch.zeros(B, MAX_LOOP_DEPTH, dtype=torch.long,
                                device=dev)
+        # per machine, the steps it was running at (kept while tracing)
+        self.live = zeros() if spans.enabled() else None
 
     def running(self):
         return ~(self.fail | self.halt)
@@ -92,6 +100,8 @@ class _Machines:
 
     def step(self):
         active = self.running()
+        if self.live is not None:
+            self.live += active
         pc = self.pc.clamp(0, self.L - 1)
         op = _gather(self.op_table, pc)
         arg = _gather(self.arg_table, pc)
@@ -218,6 +228,10 @@ def run_and_compare(code, wall, y0, x0, d0, markers0,
         for _ in range(min(CHECK_EVERY, max_steps - steps)):
             m.step()
             steps += 1
+    if m.live is not None:
+        spans.count("vm.steps", steps)
+        spans.count("vm.machine_steps", steps * code.shape[0])
+        spans.count("vm.live_machine_steps", m.live.sum())
     success = m.halt & ~m.fail
     correct = success & m.match & (m.t == m.demo_len)
     return {"correct": correct, "success": success, "exe_len": m.t.int(),

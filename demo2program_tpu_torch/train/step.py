@@ -55,6 +55,7 @@ from demo2program_tpu_torch.models.ops import use_mesh
 from demo2program_tpu_torch.ops.reconstruct import expand_batch
 from demo2program_tpu_torch.parallel.mesh import (
     all_reduce_gradients, global_report, shard_rows, world_of)
+from demo2program_tpu_torch.utils import spans
 
 NON_TENSOR_KEYS = ("id",)
 CLIP_NORM = 20.0
@@ -183,18 +184,20 @@ class TrainState:
     def apply_gradients(self):
         """Clip the parameters' gradients by global norm 20, take one Adam
         step at the scheduled rate -> the norm before clipping. A parameter
-        without a gradient gets zeros, as in the JAX gradient tree."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
-        clip_by_global_norm_(grads, norm)
-        for group in self.optimizer.param_groups:
-            group["lr"] = learning_rate_at(self.learning_rate, self.step,
-                                           self.lr_weight_decay)
-        self.optimizer.step()
-        self.step += 1
+        without a gradient gets zeros, as in the JAX gradient tree. Span
+        `d2p.train.update`."""
+        with spans.span("d2p.train.update"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in self.params]
+            norm = global_norm(grads)
+            clip_by_global_norm_(grads, norm)
+            for group in self.optimizer.param_groups:
+                group["lr"] = learning_rate_at(self.learning_rate, self.step,
+                                               self.lr_weight_decay)
+            self.optimizer.step()
+            self.step += 1
         return norm
 
     def state_dict(self):
@@ -239,12 +242,15 @@ def forward_loss(model, cfg, batch, model_name, mesh=None, **kwargs):
     """Train-mode forward of a compact or expanded batch (dict of tensors on
     the model's device) -> (loss, report) of `model_name`'s objective, over
     the global batch of `mesh` (the rank's partial sums). `kwargs` go to
-    the model (scheduled sampling's sampling_prob and noise)."""
-    model.train()
-    batch = expand_batch(strip_non_tensor(batch), cfg)
-    with use_mesh(model, mesh):
-        out = compute_call(model, cfg, batch, include_greedy=False, **kwargs)
-    return objective.compute_loss(cfg, out, batch, model_name, mesh)
+    the model (scheduled sampling's sampling_prob and noise). Span
+    `d2p.train.forward`."""
+    with spans.span("d2p.train.forward"):
+        model.train()
+        batch = expand_batch(strip_non_tensor(batch), cfg)
+        with use_mesh(model, mesh):
+            out = compute_call(model, cfg, batch, include_greedy=False,
+                               **kwargs)
+        return objective.compute_loss(cfg, out, batch, model_name, mesh)
 
 
 def make_train_step(state, cfg, model_name, seed=0, mesh=None):
@@ -256,29 +262,35 @@ def make_train_step(state, cfg, model_name, seed=0, mesh=None):
     cfg.scheduled_sampling the program decoder samples at
     sampling_prob(cfg, state.step), drawing `noise` (the decoder's
     (Gumbel, uniform) pair) or, without it, the global batch's draws from
-    step_generator(seed, state.step)."""
+    step_generator(seed, state.step). Spans: `d2p.train.step` around the
+    whole step; in it `d2p.train.forward`, `d2p.train.backward` (gradients
+    zeroed, backward, their all-reduce and the report's) and
+    `d2p.train.update`."""
 
     def train_step(batch, noise=None):
-        kwargs = {}
-        if cfg.scheduled_sampling:
-            if noise is None:  # the global batch's draws, sharded
-                device = next(state.model.parameters()).device
-                bs, L = batch["program_tokens"].shape
-                noise = tuple(shard_rows(t, mesh, dim=1) for t in (
-                    scheduled_noise(L, bs * dp_of(mesh),
-                                    cfg.dim_program_token, step_generator(
-                                        seed, state.step, device), device)))
-            kwargs = dict(sampling_prob=sampling_prob(cfg, state.step),
-                          noise=noise)
-        loss, report = forward_loss(state.model, cfg, batch, model_name,
-                                    mesh, **kwargs)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_gradients(state.params, mesh)
-        report = global_report({k: v.detach() for k, v in report.items()},
-                               mesh)
-        report["grad_norm"] = state.apply_gradients()
-        return report
+        with spans.span("d2p.train.step"):
+            kwargs = {}
+            if cfg.scheduled_sampling:
+                if noise is None:  # the global batch's draws, sharded
+                    device = next(state.model.parameters()).device
+                    bs, L = batch["program_tokens"].shape
+                    noise = tuple(shard_rows(t, mesh, dim=1) for t in (
+                        scheduled_noise(L, bs * dp_of(mesh),
+                                        cfg.dim_program_token,
+                                        step_generator(seed, state.step,
+                                                       device), device)))
+                kwargs = dict(sampling_prob=sampling_prob(cfg, state.step),
+                              noise=noise)
+            loss, report = forward_loss(state.model, cfg, batch, model_name,
+                                        mesh, **kwargs)
+            with spans.span("d2p.train.backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                all_reduce_gradients(state.params, mesh)
+                report = global_report(
+                    {k: v.detach() for k, v in report.items()}, mesh)
+            report["grad_norm"] = state.apply_gradients()
+            return report
 
     return train_step
 
@@ -300,37 +312,38 @@ def make_eval_step(model, cfg, model_name, decode_mode="greedy",
     scalars are the global batch's (summed across the ranks), the
     per-example evals the rank's rows (gather them over the data index,
     gather_rows(t, data_axis(mesh))), and syntax_sample's draws the global
-    batch's, sharded by rows."""
+    batch's, sharded by rows. Span `d2p.eval.step`."""
     kwargs = {} if decode_mode == "greedy" else {"decode_mode": decode_mode}
 
     @torch.no_grad()
     def eval_step(batch):
-        model.eval()
-        batch = expand_batch(strip_non_tensor(batch), cfg)
-        if decode_mode == "syntax_sample":
-            device = next(model.parameters()).device
-            generator = torch.Generator(device=device).manual_seed(
-                decode_seed)
-            if world_of(mesh) > 1:  # the global batch's draws, sharded
-                rows = batch["program_tokens"].shape[0] * dp_of(mesh)
-                kwargs["decode_noise"] = shard_rows(gumbel(
-                    (cfg.max_program_len, rows, cfg.dim_program_token),
-                    generator, device), mesh, dim=1)
-            else:
-                kwargs["generator"] = generator
-        with use_mesh(model, mesh):
-            out = compute_call(model, cfg, batch, **kwargs)
-        _, report = objective.compute_loss(cfg, out, batch, model_name,
-                                           mesh)
-        report.update(objective.greedy_action_report(cfg, out, batch,
-                                                     model_name, mesh))
-        evals = objective.program_eval_tensors(cfg, out, batch,
-                                               image_tensors, mesh)
-        scalars = {("report", k): v for k, v in report.items()}
-        scalars.update({("evals", k): v for k, v in evals.items()
-                        if v.dim() == 0})
-        for (kind, k), v in global_report(scalars, mesh).items():
-            (report if kind == "report" else evals)[k] = v
-        return report, evals
+        with spans.span("d2p.eval.step"):
+            model.eval()
+            batch = expand_batch(strip_non_tensor(batch), cfg)
+            if decode_mode == "syntax_sample":
+                device = next(model.parameters()).device
+                generator = torch.Generator(device=device).manual_seed(
+                    decode_seed)
+                if world_of(mesh) > 1:  # the global batch's draws, sharded
+                    rows = batch["program_tokens"].shape[0] * dp_of(mesh)
+                    kwargs["decode_noise"] = shard_rows(gumbel(
+                        (cfg.max_program_len, rows, cfg.dim_program_token),
+                        generator, device), mesh, dim=1)
+                else:
+                    kwargs["generator"] = generator
+            with use_mesh(model, mesh):
+                out = compute_call(model, cfg, batch, **kwargs)
+            _, report = objective.compute_loss(cfg, out, batch, model_name,
+                                               mesh)
+            report.update(objective.greedy_action_report(cfg, out, batch,
+                                                         model_name, mesh))
+            evals = objective.program_eval_tensors(cfg, out, batch,
+                                                   image_tensors, mesh)
+            scalars = {("report", k): v for k, v in report.items()}
+            scalars.update({("evals", k): v for k, v in evals.items()
+                            if v.dim() == 0})
+            for (kind, k), v in global_report(scalars, mesh).items():
+                (report if kind == "report" else evals)[k] = v
+            return report, evals
 
     return eval_step

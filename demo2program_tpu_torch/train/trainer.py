@@ -29,6 +29,9 @@ seconds the step waited for its batch. The cadence is the JAX package's:
     kernels on cuda) of steps [start + profile_start, start + profile_start
     + P) written as a Chrome trace under <train_dir>/profile/. The JAX
     package traces its streaming loop only; here both loops honour it.
+    Tracing (utils/spans.py) is on for those steps, so the trace holds the
+    program's `d2p.*` spans as ranges, and the spans' summary (calls,
+    inclusive and self ms a step, and the counters) is logged at its end.
 
 Relaunching into a train_dir that has checkpoints resumes from the newest
 one (step, parameters, BN statistics, Adam state) and trains to the target
@@ -99,7 +102,7 @@ from demo2program_tpu_torch.train.device_cache import (
 from demo2program_tpu_torch.train.step import (
     TrainState, make_eval_step, make_train_step, require_deterministic_cuda,
     to_device)
-from demo2program_tpu_torch.utils import log
+from demo2program_tpu_torch.utils import log, spans
 from demo2program_tpu_torch.utils.png import write_png
 
 # what the train step never reads, left out of a streamed train batch
@@ -456,15 +459,19 @@ class Trainer:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
         profiler.start()
+        spans.reset()
+        spans.enable()
         log.infov("profiler trace started at step %d", step)
         return profiler
 
     def _stop_profile(self, profiler, first, end):
-        """Stop after the work of steps [first, end) has run on the device
-        and write the Chrome trace -> None."""
+        """Stop after the work of steps [first, end) has run on the device,
+        log the spans' summary and write the Chrome trace -> None."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        spans.disable()
         profiler.stop()
+        _log_spans(spans.summary(), first, end)
         out_dir = os.path.join(self.train_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
         rank = f"_rank{self.mesh.rank}" if self.mesh.world > 1 else ""
@@ -473,6 +480,19 @@ class Trainer:
         log.infov("profiler trace of steps [%d, %d) written to %s", first,
                   end, path)
         return None
+
+
+def _log_spans(summary, first, end):
+    """Log each span's calls, inclusive and self ms a step over steps
+    [first, end), and the counters."""
+    n = max(end - first, 1)
+    log.infov("spans of steps [%d, %d), a step: calls, inclusive ms, self ms",
+              first, end)
+    for name, s in sorted(summary["spans"].items()):
+        log.info("  %-20s %8.1f %10.3f %10.3f", name, s["calls"] / n,
+                 1e3 * s["seconds"] / n, 1e3 * s["self_seconds"] / n)
+    for name, v in sorted(summary["counters"].items()):
+        log.info("  %-20s %d", name, v)
 
 
 class _InfiniteEval:

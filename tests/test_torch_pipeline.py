@@ -4,9 +4,11 @@ compact batch against KarelDeviceCache's gather of the same rows; the
 Trainer's streaming loop (D2P_KAREL_DEVICE_CACHE=0 /
 D2P_DOOM_DEVICE_CACHE=0): bitwise exact resume on Karel and ViZDoom,
 `sec_data_wait` in the metrics, `--profile_steps` writing a Chrome trace
-that parses; and `--sample_images`: the port's PNGs decode (cv2.imread) to
-JAX's Trainer._write_sample_images' pixels on the same batch and evals."""
+that parses and holds the program's spans; and `--sample_images`: the
+port's PNGs decode (cv2.imread) to JAX's Trainer._write_sample_images'
+pixels on the same batch and evals."""
 
+import collections
 import glob
 import json
 import os
@@ -36,6 +38,7 @@ from demo2program_tpu_torch.train import checkpoint
 from demo2program_tpu_torch.train.device_cache import KarelDeviceCache
 from demo2program_tpu_torch.train.step import to_device
 from demo2program_tpu_torch.train.trainer import TRAIN_DROP, Trainer
+from demo2program_tpu_torch.utils import spans
 from demo2program_tpu_torch.utils.png import read_png
 
 BS = 4
@@ -259,7 +262,9 @@ def test_many_workers_keep_the_stream_order(split):
 def test_profile_steps_writes_a_trace_that_parses(split, tmp_path,
                                                   monkeypatch):
     """--profile_steps 1 --profile_start 1: one trace file of step [1, 2)
-    under <train_dir>/profile/, in both loops."""
+    under <train_dir>/profile/, in both loops, holding the program's spans
+    of that step as ranges (tracing on for the profiled step alone, off
+    after it)."""
     for name, cache in (("cached", "1"), ("streamed", "0")):
         monkeypatch.setenv("D2P_KAREL_DEVICE_CACHE", cache)
         args = _args(tmp_path / name, "karel", "--profile_steps", "1",
@@ -271,6 +276,13 @@ def test_profile_steps_writes_a_trace_that_parses(split, tmp_path,
         with open(traces[0]) as f:
             events = json.load(f)["traceEvents"]
         assert any(e.get("name", "").startswith("aten::") for e in events)
+        ranges = collections.Counter(e.get("name") for e in events
+                                     if e.get("name", "").startswith("d2p."))
+        for span in ("d2p.train.step", "d2p.train.forward",
+                     "d2p.train.backward", "d2p.train.update"):
+            assert ranges[span] == 1, span
+        assert ranges["d2p.lstm.step"] == ranges["d2p.lstm.backward"] > 0
+        assert not spans.enabled()
 
 
 def _jax_stub(train_dir, cfg):
