@@ -15,6 +15,7 @@ from torch import nn
 from demo2program_tpu_torch.models.ops import (
     Conv2D, FC, MeshModule, make_lstm_cell)
 from demo2program_tpu_torch.parallel.mesh import all_gather_demos, demo_mean
+from demo2program_tpu_torch.utils import spans
 
 
 class StateEncoder(nn.Module):
@@ -22,7 +23,8 @@ class StateEncoder(nn.Module):
     channels for Karel grids, two more of 48 (conv4, conv5) for ViZDoom
     frames. Input (B, h, w, depth) NHWC, as in JAX; the flax SAME padding
     takes 80x80 frames to 40, 20, 10, 5 and 3, so a ViZDoom frame has
-    3 * 3 * 48 = 432 features."""
+    3 * 3 * 48 = 432 features. Span `d2p.encoder.frames`; counter
+    `encoder.frames`, the frames a call encodes."""
 
     def __init__(self, h=8, w=8, depth=16, dataset_type="karel"):
         super().__init__()
@@ -37,11 +39,13 @@ class StateEncoder(nn.Module):
         self.out_features = 48 * h * w
 
     def forward(self, s):  # (B, h, w, depth) -> (B, feat)
-        x = s.float().permute(0, 3, 1, 2)  # demos arrive as uint8
-        for i in range(1, self.n_convs + 1):
-            x = getattr(self, f"conv{i}")(x)
-        # flatten in the JAX (NHWC) order
-        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        with spans.span("d2p.encoder.frames"):
+            spans.count("encoder.frames", s.shape[0])
+            x = s.float().permute(0, 3, 1, 2)  # demos arrive as uint8
+            for i in range(1, self.n_convs + 1):
+                x = getattr(self, f"conv{i}")(x)
+            # flatten in the JAX (NHWC) order
+            return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
 class LSTMEncoder(nn.Module):
@@ -139,7 +143,8 @@ class RNPool(MeshModule):
     flax's order. On a 2-D mesh a rank holding demos i of its slice pairs
     them with every demo j, gathered from its demo group: (k / D) x k pairs
     a rank, each pair on one rank, BatchNorm over the world's pairs and the
-    mean a demo-group sum (parallel/mesh.py)."""
+    mean a demo-group sum (parallel/mesh.py). Span `d2p.encoder.rn`;
+    counter `encoder.rn_rows`, the pair rows a call (bs * k * K)."""
 
     def __init__(self, units):
         super().__init__()
@@ -147,14 +152,16 @@ class RNPool(MeshModule):
         self.fc2 = FC(units, units)
 
     def forward(self, feat):  # (bs, k, v), the rank's k of the demos
-        every = all_gather_demos(feat, self.mesh)  # (bs, K, v)
-        bs, k, v = feat.shape
-        K = every.shape[1]
-        tile1 = every[:, None, :, :].expand(bs, k, K, v)
-        tile2 = feat[:, :, None, :].expand(bs, k, K, v)
-        x = torch.cat([tile1, tile2], dim=3).reshape(bs * k * K, 2 * v)
-        x = self.fc2(self.fc1(x))
-        return demo_mean(x.reshape(bs, k, K, -1), self.mesh, dim=(1, 2))
+        with spans.span("d2p.encoder.rn"):
+            every = all_gather_demos(feat, self.mesh)  # (bs, K, v)
+            bs, k, v = feat.shape
+            K = every.shape[1]
+            spans.count("encoder.rn_rows", bs * k * K)
+            tile1 = every[:, None, :, :].expand(bs, k, K, v)
+            tile2 = feat[:, :, None, :].expand(bs, k, K, v)
+            x = torch.cat([tile1, tile2], dim=3).reshape(bs * k * K, 2 * v)
+            x = self.fc2(self.fc1(x))
+            return demo_mean(x.reshape(bs, k, K, -1), self.mesh, dim=(1, 2))
 
 
 class SummarizeFeature(MeshModule):

@@ -28,11 +28,15 @@ The spans the program places and what reads them: `d2p.train.step`,
 `d2p.train.forward`, `d2p.train.backward`, `d2p.train.update`
 (train/step.py), `d2p.lstm.step`, `d2p.lstm.backward` (ops/fused_lstm.py),
 `d2p.eval.step` (train/step.py), `d2p.score.host`, `d2p.score.replay`,
-`d2p.score.vm` (eval/scorer.py, eval/vizdoom_scorer.py: their `timings`);
-the counters `vm.steps`, `vm.machine_steps`, `vm.live_machine_steps`
-(ops/vm.py). The trainer's `--profile_steps` turns tracing on for its
+`d2p.score.vm` (eval/scorer.py, eval/vizdoom_scorer.py: their `timings`),
+`d2p.encoder.frames`, `d2p.encoder.rn` (models/encoder.py: the frame CNN
+and the relation-network pool); the counters `vm.steps`,
+`vm.machine_steps`, `vm.live_machine_steps` (ops/vm.py), `encoder.frames`
+and `encoder.rn_rows` (models/encoder.py: the frames and the pair rows a
+call). The trainer's `--profile_steps` turns tracing on for its
 profiled steps and logs the summary; bench_torch/tools/span_readings.py
-reads them on the card.
+reads them on the card, and the benchmark's ViZDoom train cell reads the
+encoder's (bench_torch/traffic/doom_train_cache.py).
 """
 
 import itertools
